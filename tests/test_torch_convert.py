@@ -1,0 +1,82 @@
+"""The port's weight bridge and its cards (videoseal_tpu_torch.utils.convert,
+videoseal_tpu_torch.cards)."""
+
+import copy
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from torch_port import tiny_card
+
+from videoseal_tpu.utils.torch_convert import convert_model
+from videoseal_tpu_torch import VideoSeal, load_card
+from videoseal_tpu_torch.cards import CARDS
+from videoseal_tpu_torch.utils.convert import from_jax_variables
+
+torch.set_num_threads(1)
+
+_CARD_DIR = os.path.join(os.path.dirname(__file__), "..", "videoseal_tpu", "cards")
+
+
+class TestWeightBridge:
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_round_trip_through_reference_names(self, seed):
+        """port state_dict (reference names) -> torch_convert.convert_model ->
+        from_jax_variables gives back every tensor exactly."""
+        card = tiny_card()
+        model = VideoSeal.from_card(copy.deepcopy(card), seed=seed)
+        sd = {k: v.numpy() for k, v in model.state_dict().items()}
+        emb_vars, ext_vars = convert_model(sd, card)
+        emb, ext = from_jax_variables(emb_vars, ext_vars)
+        for got, mod in ((emb, model.embedder), (ext, model.extractor)):
+            want = mod.state_dict()
+            assert set(got) == set(want)
+            for k, v in want.items():
+                assert got[k].shape == v.shape, k
+                assert torch.equal(got[k].to(v.dtype), v), k
+
+    def test_checkpoint_load(self, tmp_path):
+        """A reference-style checkpoint ({"model": state_dict}, embedder.* and
+        detector.* names) loads through from_card(checkpoint=...)."""
+        card = tiny_card()
+        a = VideoSeal.from_card(copy.deepcopy(card), seed=5)
+        path = str(tmp_path / "ckpt.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in a.state_dict().items()}}, path)
+        b = VideoSeal.from_card(copy.deepcopy(card), checkpoint=path, seed=6)
+        for k, v in a.state_dict().items():
+            assert torch.equal(b.state_dict()[k], v), k
+
+    def test_load_strict(self):
+        """The converted dicts load with strict=True into fresh modules."""
+        card = tiny_card()
+        a = VideoSeal.from_card(copy.deepcopy(card), seed=3)
+        b = VideoSeal.from_card(copy.deepcopy(card), seed=4)
+        emb, ext = from_jax_variables(*convert_model(
+            {k: v.numpy() for k, v in a.state_dict().items()}, card))
+        b.embedder.load_state_dict(emb, strict=True)
+        b.extractor.load_state_dict(ext, strict=True)
+        for k, v in a.state_dict().items():
+            assert torch.equal(b.state_dict()[k], v), k
+
+
+class TestCards:
+    @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(_CARD_DIR, "*.yaml"))))
+    def test_card_equals_yaml(self, path):
+        name = os.path.basename(path)[:-5]
+        with open(path) as f:
+            want = yaml.safe_load(f)
+        assert CARDS[name] == want
+        assert load_card(name) == want
+
+    def test_cards_cover_yaml_dir(self):
+        names = {os.path.basename(p)[:-5] for p in glob.glob(os.path.join(_CARD_DIR, "*.yaml"))}
+        assert set(CARDS) == names
+        assert load_card("videoseal") == CARDS["videoseal_1.0"]
+
+    def test_unported_cards_raise(self):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            VideoSeal.from_card(load_card("videoseal_0.0"))

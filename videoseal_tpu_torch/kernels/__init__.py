@@ -1,0 +1,4 @@
+"""Hand-written Hopper kernels (CUDA C++ in ../csrc) with their plain versions.
+
+K1 fused_planar.fused_jnd_blend_planar, K2 convnext_block.convnext_block_fused.
+"""

@@ -1,0 +1,50 @@
+"""Extractor wrapper and builder, counterpart of ``videoseal_tpu/models/extractor.py``.
+
+An extractor maps [0,1] NHWC images to (B, 1 + nbits) logits: the first is
+the detection logit, the rest are the bit logits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..modules.convnext import ConvNeXtV2
+from ..modules.pixel_decoder import PixelDecoder
+
+
+class ConvnextExtractor(nn.Module):
+    def __init__(self, encoder: dict, pixel_decoder: dict):
+        super().__init__()
+        self.convnext = ConvNeXtV2(**encoder)
+        self.pixel_decoder = PixelDecoder(**pixel_decoder)
+
+    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
+        return self.pixel_decoder(self.convnext(imgs * 2 - 1))
+
+
+@dataclasses.dataclass
+class ExtractorSpec:
+    module: nn.Module
+    nbits: int
+    pixelwise: bool
+
+
+def build_extractor(name: str, cfg: dict, img_size: int, nbits: int) -> ExtractorSpec:
+    """Registry keyed by name prefix; convnext* only in this port so far."""
+    cfg = {k: dict(v) if isinstance(v, dict) else v for k, v in (cfg or {}).items()}
+    if not name.startswith("convnext"):
+        raise NotImplementedError(
+            f"Extractor {name}: only convnext* extractors are ported; the SAM "
+            "ViT of videoseal_0.0 comes with ROADMAP.md 1.2, dino/hidden/dvmark "
+            "with ROADMAP.md 1.9")
+    enc = cfg.get("encoder", {})
+    pd = cfg.get("pixel_decoder", {})
+    pd["nbits"] = nbits
+    if cfg.get("proportional_dim", False):
+        raise NotImplementedError("proportional_dim (chunkyseal): ROADMAP.md 1.2")
+    pd["embed_dim"] = enc.get("dims", (96, 192, 384, 768))[-1]
+    return ExtractorSpec(ConvnextExtractor(encoder=enc, pixel_decoder=pd), nbits,
+                         pd.get("pixelwise", False))
