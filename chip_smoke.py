@@ -1,27 +1,43 @@
-"""Drive the PyTorch port's planar serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi)
      and the torch/CUDA versions;
-  2. build: compiles the Hopper kernels from videoseal_tpu_torch/csrc;
+  2. build: compiles the Hopper kernels from videoseal_tpu_torch/csrc, one
+     nvcc per source, all at once;
   3. K1 (planar blend) against its plain version at 1080p, F=4, both JND
      branches with and without the detect output; times it at F=128;
   4. K2 (ConvNeXt block) against its plain version at the four stage shapes,
      B=32, bf16 and f32; times it;
-  5. the slice: videoseal_1.0 at random init (seed 0) in bf16,
+  5. the planar slice: videoseal_1.0 at random init (seed 0) in bf16,
      embed_detect_planar over 128 planar 1080p frames in the scored and the
      card-default modes; checks shapes, launch counts, the scaling_w=0
-     identity, CPU-vs-card agreement on 4 frames; times it.
-The line before the last holds the kernels' JSON record, the one before it
-the nvidia-smi line; the last line is the device record. Details go to
-chiprun_out/chip_smoke.json.
+     identity, CPU-vs-card agreement on 4 frames; times it;
+  6. K4, K5, K6 (full-resolution JND on NHWC frames) against their plain
+     versions at 1080p, F=4 (K4 on u8 and f32 frames, K5, K6 with 1- and
+     3-channel predictions in f32 and bf16), K4, K5 and K6 again at F=2 and
+     1078x1922 (ragged strips and column chunks), and K5(resize(pred))
+     against K4(pred); times each and its plain version at F=128;
+  7. the NHWC slice: videoseal_1.0 at random init (seed 0) in bf16, embed
+     of 128 u8 1080p frames as a video, detect and extract_message of the
+     result, embed of 32 float frames as images; checks shapes, launch
+     counts, the scaling_w=0 identity, CPU-vs-card agreement on 4 frames;
+     times embed+detect;
+  8. the K6 path at full width: chunkyseal at random init in bf16, embed of
+     8 float 1080p frames as images; checks the K6 launch, shapes and the
+     scaling_w=0 identity (chunkyseal's detect is not run).
+Each path runs with every launch count set to 0 just before it and read
+just after. The line before the last holds the kernels' JSON record, the one
+before it the nvidia-smi line; the last line is the device record. Details
+go to chiprun_out/chip_smoke.json.
 
     python3 chip_smoke.py --profile
 
-also traces one call of each mode with torch.profiler and prints the device
-time by kernel and the device's busy share (tables in chiprun_out/).
+also traces one call of each planar mode and of the NHWC slice with
+torch.profiler and prints the device time by kernel and the device's busy
+share (tables in chiprun_out/).
 """
 
 from __future__ import annotations
@@ -48,6 +64,16 @@ K2_ATOL, K2_RTOL = 5e-2, 2e-2
 # slice, CPU vs card, both bf16 forwards: conv and matmul sums in another
 # order move the prediction by bf16 noise, a fraction of an LSB after the blend
 SLICE_U8_MAX, SLICE_U8_SHARE, SLICE_LOGIT_ATOL = 2, 1e-2, 0.5
+SLICE_FLOAT_ATOL = SLICE_U8_MAX / 255.0
+# K4/K5: the plain versions repeat the kernels' f32 arithmetic with sums in
+# another order (K4's lift as a dense matmul): ~1e-5 relative on the delta.
+# K6 output in [0, 1]: that delta error plus f32 rounding (6e-8)
+DELTA_RTOL, BLEND_ATOL = 1e-5, 1e-6
+# published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# f32 operations per pixel of jnd_heat.cuh and the luminance before it,
+# counted by hand (sqrt, log, exp and one division counted as one each)
+HEAT_OPS = 85
 
 
 def log(msg: str) -> None:
@@ -65,6 +91,43 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type. The
+    tensor cores and the CUDA cores run at once, so the operations take the
+    larger of their two times, not the sum."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = max(f32_ops / F32_FLOPS, bf16_ops / BF16_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_wrappers() -> dict:
+    from videoseal_tpu_torch.kernels import fused_blend as fb
+    from videoseal_tpu_torch.kernels.convnext_block import convnext_block_fused
+    from videoseal_tpu_torch.kernels.fused_planar import fused_jnd_blend_planar
+    return {"K1": fused_jnd_blend_planar, "K2": convnext_block_fused,
+            "K4": fb.fused_jnd_delta_up, "K5": fb.fused_jnd_delta, "K6": fb.fused_jnd_blend}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def check_counts(path: str, want: dict) -> dict:
+    got = read_counts()
+    want = {k: want.get(k, 0) for k in got}
+    log(f"[{path}] launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{path}: kernel launch counts {got} != {want}")
+    return got
 
 
 def planar_frames(f: int, seed: int, device) -> torch.Tensor:
@@ -133,9 +196,22 @@ def phase_k1(dev) -> dict:
                     log(f"[K1] F={f} {key}: kernel {ms:.3f} ms, plain {pms:.3f} ms")
                     rec[key].update(ms=ms, plain_ms=pms)
                     torch.cuda.empty_cache()
+    # bound of the scored branch at F=128 (pred: the last loop's input). It
+    # reads the (hout, wq) window of each u8 plane that it writes out, with
+    # no halo, the f32 prediction, and writes the f32 detect input.
+    from videoseal_tpu_torch.kernels.fused_planar import TH, _tables_np, planar_geometry
+    n_tiles, _, _, wq = planar_geometry(H, W)
+    hout, f = TH * n_tiles, F_SLICE
+    taps = {k: v[2] for k, v in _tables_np(256, H, W, hout, 256).items()}
+    nbytes = 2 * f * 3 * hout * wq + pred.numel() * 4 + f * 3 * 256 * 256 * 4
+    ops = (f * hout * wq * (2 * taps["lift"] + 15) + f * 3 * hout * 256 * 2 * taps["dw"]
+           + f * 3 * 256 * 256 * 2 * taps["dh"])
     scored = rec["lowres=True,ds=256"]
+    bound_ms, bound_by = bound(nbytes, f32_ops=ops)
+    log(f"[K1] scored branch, F={f}: bound {bound_ms:.3f} ms ({bound_by}), kernel at "
+        f"{bound_ms / scored['ms']:.1%} of it")
     return {"checks": rec, "max_abs_err": worst, "ms": scored["ms"],
-            "plain_ms": scored["plain_ms"]}
+            "plain_ms": scored["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _random_block(c: int, seed: int, dev, dtype):
@@ -158,7 +234,12 @@ def phase_k2(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rec, worst, chunk_ms, chunk_plain = {}, 0.0, 0.0, 0.0
+    nbytes = f32_ops = bf16_ops = 0.0
     for i, (h, w, c) in enumerate(STAGES):
+        px = 32 * h * w   # one block of one 32-frame chunk, bf16 in and out
+        nbytes += DEPTHS[i] * (2 * px * c * 2 + 49 * c * 4 + 2 * 4 * c * c * 2 + 15 * c * 4)
+        bf16_ops += DEPTHS[i] * 2 * 2 * px * c * 4 * c
+        f32_ops += DEPTHS[i] * (px * c * (2 * 49 + 10) + px * 4 * c * 12)
         for dtype in (torch.bfloat16, torch.float32):
             blk = _random_block(c, i, dev, dtype)
             p = block_params(blk)
@@ -167,13 +248,13 @@ def phase_k2(dev) -> dict:
             a, b = convnext_block_fused(x, p).float(), convnext_block_plain(x, p).float()
             torch.cuda.synchronize()
             err = (a - b).abs()
-            bound = K2_ATOL + K2_RTOL * b.abs()
+            tol = K2_ATOL + K2_RTOL * b.abs()
             key = f"{h}x{w}x{c},{str(dtype)[6:]}"
             ms = cuda_ms(lambda: convnext_block_fused(x, p))
             pms = cuda_ms(lambda: convnext_block_plain(x, p))
             log(f"[K2] B=32 {key}: max abs err {float(err.max()):.3e}, mean "
                 f"{float(err.mean()):.3e}; kernel {ms:.3f} ms, plain {pms:.3f} ms")
-            if not bool(torch.isfinite(a).all()) or bool((err > bound).any()):
+            if not bool(torch.isfinite(a).all()) or bool((err > tol).any()):
                 raise AssertionError(f"K2 disagrees with its plain version at {key}")
             rec[key] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
                         "ms": ms, "plain_ms": pms}
@@ -181,15 +262,16 @@ def phase_k2(dev) -> dict:
                 worst = max(worst, float(err.max()))
                 chunk_ms += DEPTHS[i] * ms
                 chunk_plain += DEPTHS[i] * pms
+    bound_ms, bound_by = bound(nbytes, f32_ops=f32_ops, bf16_ops=bf16_ops)
     log(f"[K2] 18 blocks of one chunk of 32 frames, bf16: kernel {chunk_ms:.3f} ms, "
-        f"plain {chunk_plain:.3f} ms")
-    return {"checks": rec, "max_abs_err": worst, "ms": chunk_ms, "plain_ms": chunk_plain}
+        f"plain {chunk_plain:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), kernel at "
+        f"{bound_ms / chunk_ms:.1%} of it")
+    return {"checks": rec, "max_abs_err": worst, "ms": chunk_ms, "plain_ms": chunk_plain,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_slice(dev, smi: str) -> dict:
     import videoseal_tpu_torch as vt
-    from videoseal_tpu_torch.kernels.convnext_block import convnext_block_fused
-    from videoseal_tpu_torch.kernels.fused_planar import fused_jnd_blend_planar
 
     model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
     imgs = planar_frames(F_SLICE, 3, dev)
@@ -197,17 +279,11 @@ def phase_slice(dev, smi: str) -> dict:
     modes = {"scored": dict(lowres_attenuation=True, fused_detect=True),
              "default": dict(lowres_attenuation=False, fused_detect=False)}
 
-    fused_jnd_blend_planar.launches = 0
-    convnext_block_fused.launches = 0
+    reset_counts()
     outs = {m: model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw)
             for m, kw in modes.items()}
-    torch.cuda.synchronize()
-    launches = {"K1": fused_jnd_blend_planar.launches, "K2": convnext_block_fused.launches}
-    want = {"K1": len(modes), "K2": 18 * math.ceil(F_SLICE / 32) * len(modes)}
-    log(f"[slice] launches {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"kernel launch counts {launches} != {want}")
-    rec = {"launches": launches}
+    rec = {"launches": check_counts("slice", {
+        "K1": len(modes), "K2": 18 * math.ceil(F_SLICE / 32) * len(modes)})}
     for m, out in outs.items():
         wm, preds = out["imgs_w"], out["preds"]
         bits = vt.aggregate_message(preds)
@@ -245,7 +321,9 @@ def phase_slice(dev, smi: str) -> dict:
         rec[f"{m}_cpu_vs_card"] = {"u8_max": int(d.max()), "logit_max": ld}
 
     if "--profile" in sys.argv:
-        rec["profile"] = profile_slice(model, imgs, msgs, modes)
+        rec["profile"] = profile({
+            m: (lambda kw=kw: model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw))
+            for m, kw in modes.items()})
     for m, kw in modes.items():
         ms = cuda_ms(lambda: model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw))
         fps = F_SLICE / ms * 1000
@@ -255,19 +333,225 @@ def phase_slice(dev, smi: str) -> dict:
     return rec
 
 
-def profile_slice(model, imgs, msgs, modes) -> dict:
-    """Device time by kernel over one call of each mode, and the busy share
+def phase_jnd(dev) -> dict:
+    """K4, K5, K6 against their plain versions at F=4, timed at F=128."""
+    from videoseal_tpu_torch.kernels import fused_blend as fb
+    from videoseal_tpu_torch.kernels.fused_planar import _band
+    from videoseal_tpu_torch.ops.resize import _resize_matrix, resize_bilinear
+    s = 256
+    lift_taps = _band(_resize_matrix(s, H))[2]
+    width_taps = _band(_resize_matrix(s, W))[2]
+
+    def cases(f: int, seed: int) -> dict:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u8 = torch.randint(0, 256, (f, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
+        f32 = torch.rand((f, H, W, 3), generator=g, device=dev)
+        pred_low = (torch.rand((f, s, s), generator=g, device=dev) * 2 - 1).contiguous()
+        pred = resize_bilinear(pred_low[..., None], H, W)[..., 0].contiguous()
+        p1 = torch.rand((f, H, W, 1), generator=g, device=dev) * 2 - 1
+        p3 = torch.rand((f, H, W, 3), generator=g, device=dev) * 2 - 1
+        px = f * H * W
+        up_ops = px * (HEAT_OPS + 2 * lift_taps + 1) + f * s * W * 2 * width_taps
+        out = {"K4,u8": ("K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain,
+                         (u8, pred_low, 0.2), up_ops),
+               "K4,f32": ("K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain,
+                          (f32, pred_low, 0.2), up_ops),
+               "K5,f32": ("K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain,
+                          (f32, pred, 0.2), px * (HEAT_OPS + 1))}
+        for name, pr in (("f32,c1", p1), ("f32,c3", p3), ("bf16,c1", p1.to(torch.bfloat16)),
+                         ("bf16,c3", p3.to(torch.bfloat16))):
+            out[f"K6,{name}"] = ("K6", fb.fused_jnd_blend, fb.fused_jnd_blend_plain,
+                                 (f32, pr, 1.0, 0.2), px * (HEAT_OPS + 15))
+        return out
+
+    rec, worst = {}, {"K4": 0.0, "K5": 0.0, "K6": 0.0}
+
+    def hold(tag: str, key: str, k: str, kern, plain, args) -> float:
+        a, b = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        tol = BLEND_ATOL if k == "K6" else DELTA_RTOL * float(b.abs().max())
+        log(f"[{k}] {tag} {key}: max abs err {err:.3e} (tolerance {tol:.3e}), "
+            f"max |plain| {float(b.abs().max()):.4f}")
+        if not bool(torch.isfinite(a).all()) or err > tol:
+            raise AssertionError(f"{key} at {tag} disagrees with its plain version")
+        worst[k] = max(worst[k], err)
+        return err
+
+    small = cases(4, 7)
+    for key, (k, kern, plain, args, _) in small.items():
+        rec[key] = {"max_abs_err": hold("F=4", key, k, kern, plain, args)}
+    # a height that the 8-row strips do not divide and a width that the
+    # 256-column chunks do not divide: the masked edges
+    hr, wr = H - 2, W + 2
+    g = torch.Generator(device=dev).manual_seed(9)
+    u8r = torch.randint(0, 256, (2, hr, wr, 3), generator=g, device=dev, dtype=torch.uint8)
+    f32r = torch.rand((2, hr, wr, 3), generator=g, device=dev)
+    plr = (torch.rand((2, s, s), generator=g, device=dev) * 2 - 1).contiguous()
+    pr = resize_bilinear(plr[..., None], hr, wr)[..., 0].contiguous()
+    p3r = torch.rand((2, hr, wr, 3), generator=g, device=dev) * 2 - 1
+    for key, k, kern, plain, args in (
+            ("K4,u8", "K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain, (u8r, plr, 0.2)),
+            ("K5,f32", "K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain, (f32r, pr, 0.2)),
+            ("K6,f32,c3", "K6", fb.fused_jnd_blend, fb.fused_jnd_blend_plain,
+             (f32r, p3r, 1.0, 0.2))):
+        rec[key]["ragged_max_abs_err"] = hold(f"F=2 {hr}x{wr}", key, k, kern, plain, args)
+    del u8r, f32r, plr, pr, p3r
+    # K5 on the upsampled prediction is K4 on the low-res one
+    for key in ("K4,u8", "K4,f32"):
+        imgs, pred_low, sw = small[key][3]
+        a = fb.fused_jnd_delta_up(imgs, pred_low, sw)
+        b = fb.fused_jnd_delta(imgs, small["K5,f32"][3][1], sw)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        log(f"[K4] F=4 {key} against K5 on the upsampled prediction: max abs err {err:.3e}")
+        if err > DELTA_RTOL * float(b.abs().max()):
+            raise AssertionError(f"K4 and K5 disagree on {key}")
+        rec[key]["vs_K5"] = err
+    del small
+    for key, (k, kern, plain, args, ops) in cases(F_SLICE, 8).items():
+        ms, pms = cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))
+        out = kern(*args)
+        nbytes = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
+        bound_ms, bound_by = bound(nbytes + out.numel() * out.element_size(), f32_ops=ops)
+        log(f"[{k}] F={F_SLICE} {key}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of it")
+        rec[key].update(ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by)
+        del out
+    torch.cuda.empty_cache()
+    main_case = {"K4": "K4,u8", "K5": "K5,f32", "K6": "K6,f32,c3"}
+    return {k: dict(rec[c], case=c, max_abs_err=worst[k]) for k, c in main_case.items()} | {
+        "checks": rec}
+
+
+def phase_nhwc(dev, smi: str) -> dict:
+    """videoseal_1.0 over NHWC frames: embed (u8 video, float images),
+    detect, extract_message."""
+    import videoseal_tpu_torch as vt
+
+    model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.randint(0, 256, (F_SLICE, H, W, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    imgs = torch.rand((32, H, W, 3), generator=g, device=dev)
+    msgs = model.get_random_msg(1)
+
+    reset_counts()
+    vid = model.embed(frames, msgs=msgs, is_video=True)
+    preds = model.detect(vid["imgs_w"])["preds"]
+    bits = model.extract_message(vid["imgs_w"])
+    img = model.embed(imgs, is_video=False)
+    blocks = sum(len(stage) for stage in model.extractor.convnext.stages)   # 18
+    per_detect = blocks * math.ceil(F_SLICE / model.cfg.chunk_size)
+    rec = {"launches": check_counts("nhwc", {"K4": 2, "K2": 2 * per_detect})}
+    wm, pw = vid["imgs_w"], vid["preds_w"]
+    log(f"[nhwc] video: imgs_w {tuple(wm.shape)} {wm.dtype}, preds_w {tuple(pw.shape)} "
+        f"{pw.dtype}, preds {tuple(preds.shape)}, bits {tuple(bits.shape)} {bits.dtype}; "
+        f"images: imgs_w {tuple(img['imgs_w'].shape)} {img['imgs_w'].dtype}")
+    iw = img["imgs_w"]
+    if (tuple(wm.shape) != (F_SLICE, H, W, 3) or wm.dtype != torch.uint8
+            or tuple(pw.shape) != (F_SLICE, H, W, 1) or pw.dtype != torch.float32
+            or tuple(preds.shape) != (F_SLICE, 1 + model.nbits)
+            or not bool(torch.isfinite(preds).all())
+            or tuple(bits.shape) != (1, model.nbits) or bits.dtype != torch.int32
+            or tuple(iw.shape) != (32, H, W, 3) or iw.dtype != torch.float32
+            or tuple(img["preds_w"].shape) != (32, H, W, 1) or not bool(torch.isfinite(iw).all())
+            or float(iw.min()) < 0.0 or float(iw.max()) > 1.0):
+        raise AssertionError("NHWC slice output has the wrong shape, dtype or range")
+    changed = float((wm != frames).float().mean())
+    log(f"[nhwc] share of u8 values the watermark changed {changed:.3f}")
+    if changed == 0.0:
+        raise AssertionError("the watermark changed no pixel")
+
+    sw = model.scaling_w
+    model.scaling_w = 0.0
+    same_u8 = torch.equal(model.embed(frames, msgs=msgs, is_video=True)["imgs_w"], frames)
+    same_f = torch.equal(model.embed(imgs)["imgs_w"], imgs)
+    model.scaling_w = sw
+    log(f"[nhwc] scaling_w=0: u8 video unchanged {same_u8}, float images unchanged {same_f}")
+    if not (same_u8 and same_f):
+        raise AssertionError("scaling_w=0 is not the identity on the NHWC path")
+
+    cpu = vt.load("videoseal_1.0", device="cpu", seed=0).with_dtype("bfloat16")
+    g4 = model.embed(frames[:4], msgs=msgs, is_video=True)["imgs_w"]
+    c4 = cpu.embed(frames[:4].cpu(), msgs=msgs.cpu(), is_video=True)["imgs_w"]
+    d = (g4.cpu().int() - c4.int()).abs()
+    ld = float((model.detect(g4)["preds"].cpu() - cpu.detect(g4.cpu())["preds"]).abs().max())
+    m4 = model.get_random_msg(4)
+    fd = float((model.embed(imgs[:4], msgs=m4)["imgs_w"].cpu()
+                - cpu.embed(imgs[:4].cpu(), msgs=m4.cpu())["imgs_w"]).abs().max())
+    share = float((d > 0).float().mean())
+    log(f"[nhwc] F=4, card vs CPU: u8 max diff {int(d.max())}, share differing {share:.2e}, "
+        f"logits max abs diff {ld:.3e}, float images max abs diff {fd:.3e}")
+    if (int(d.max()) > SLICE_U8_MAX or share > SLICE_U8_SHARE or ld > SLICE_LOGIT_ATOL
+            or fd > SLICE_FLOAT_ATOL):
+        raise AssertionError("card and CPU disagree on the NHWC path")
+    rec["cpu_vs_card"] = {"u8_max": int(d.max()), "u8_share": share, "logit_max": ld,
+                          "float_max": fd}
+    del cpu
+
+    def embed_detect():
+        return model.detect(model.embed(frames, msgs=msgs, is_video=True)["imgs_w"])
+
+    if "--profile" in sys.argv:
+        rec["profile"] = profile({"nhwc": embed_detect})
+    ms = cuda_ms(embed_detect)
+    ems = cuda_ms(lambda: model.embed(frames, msgs=msgs, is_video=True))
+    fps = F_SLICE / ms * 1000
+    log(f"[nhwc] embed+detect: {ms:.2f} ms per {F_SLICE} u8 frames at 1080p = {fps:.1f} fps "
+        f"(embed alone {ems:.2f} ms) ({smi})")
+    rec.update(ms=ms, fps=fps, embed_ms=ems)
+    return rec
+
+
+def phase_chunky(dev) -> dict:
+    """chunkyseal's float embed at full width: the K6 path."""
+    import videoseal_tpu_torch as vt
+
+    t0 = time.perf_counter()
+    model = vt.load("chunkyseal", device=dev, seed=0).with_dtype("bfloat16")
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(6)
+    imgs = torch.rand((8, H, W, 3), generator=g, device=dev)
+    reset_counts()
+    out = model.embed(imgs, is_video=False)
+    rec = {"launches": check_counts("chunky", {"K6": 1}), "build_s": build_s}
+    wm, pw = out["imgs_w"], out["preds_w"]
+    log(f"[chunky] built in {build_s:.1f} s; imgs_w {tuple(wm.shape)} {wm.dtype}, preds_w "
+        f"{tuple(pw.shape)}")
+    if (tuple(wm.shape) != (8, H, W, 3) or wm.dtype != torch.float32
+            or tuple(pw.shape) != (8, H, W, 3) or not bool(torch.isfinite(wm).all())
+            or float(wm.min()) < 0.0 or float(wm.max()) > 1.0 or torch.equal(wm, imgs)):
+        raise AssertionError("chunkyseal embed output has the wrong shape or range, "
+                             "or is unchanged")
+    sw = model.scaling_w
+    model.scaling_w = 0.0
+    same = torch.equal(model.embed(imgs)["imgs_w"], imgs)
+    model.scaling_w = sw
+    log(f"[chunky] scaling_w=0 leaves the frames unchanged: {same}")
+    if not same:
+        raise AssertionError("scaling_w=0 is not the identity on the K6 path")
+    rec["ms"] = cuda_ms(lambda: model.embed(imgs))
+    log(f"[chunky] embed of 8 float 1080p frames: {rec['ms']:.2f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile(calls: dict) -> dict:
+    """Device time by kernel over one run of each call, and the busy share
     (summed kernel time over the call's wall time)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
 
     rec = {}
-    for m, kw in modes.items():
-        model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw)
+    for m, fn in calls.items():
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -294,22 +578,30 @@ def main() -> int:
     rec["K1"] = phase_k1(dev)
     rec["K2"] = phase_k2(dev)
     rec["slice"] = phase_slice(dev, smi)
+    rec["jnd"] = phase_jnd(dev)
+    rec["nhwc"] = phase_nhwc(dev, smi)
+    rec["chunky"] = phase_chunky(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
-    launches = rec["slice"]["launches"]
+    # each kernel's launches, summed over the paths' runs
+    paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky")]
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    measured = {"K1": rec["K1"], "K2": rec["K2"], **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")}}
+    sources = {
+        "K1": ("fused_jnd_blend_planar", "fused_planar.cu", "fused_planar.py:315"),
+        "K2": ("convnext_block_fused", "convnext_block.cu", "convnext_block.py:185"),
+        "K4": ("fused_jnd_delta_up", "jnd_delta.cu", "fused_blend.py:435"),
+        "K5": ("fused_jnd_delta", "jnd_delta.cu", "fused_blend.py:487"),
+        "K6": ("fused_jnd_blend", "jnd_delta.cu", "fused_blend.py:538"),
+    }
     kernels = [
-        {"name": "fused_jnd_blend_planar", "route": "cuda",
-         "source": "videoseal_tpu_torch/csrc/fused_planar.cu",
-         "replaces": "videoseal_tpu/kernels/fused_planar.py:315",
-         "launches": launches["K1"], "max_abs_err": rec["K1"]["max_abs_err"],
-         "ms": rec["K1"]["ms"], "plain_ms": rec["K1"]["plain_ms"]},
-        {"name": "convnext_block_fused", "route": "cuda",
-         "source": "videoseal_tpu_torch/csrc/convnext_block.cu",
-         "replaces": "videoseal_tpu/kernels/convnext_block.py:185",
-         "launches": launches["K2"], "max_abs_err": rec["K2"]["max_abs_err"],
-         "ms": rec["K2"]["ms"], "plain_ms": rec["K2"]["plain_ms"]},
-    ]
+        {"name": name, "route": "cuda", "source": f"videoseal_tpu_torch/csrc/{src}",
+         "replaces": f"videoseal_tpu/kernels/{tpu}", "launches": launches[k],
+         "max_abs_err": measured[k]["max_abs_err"], "ms": measured[k]["ms"],
+         "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
+         "bound_by": measured[k]["bound_by"], "library_ms": None}
+        for k, (name, src, tpu) in sources.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

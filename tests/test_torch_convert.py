@@ -28,7 +28,7 @@ class TestWeightBridge:
         """port state_dict (reference names) -> torch_convert.convert_model ->
         from_jax_variables gives back every tensor exactly."""
         card = tiny_card()
-        model = VideoSeal.from_card(copy.deepcopy(card), seed=seed)
+        model = VideoSeal.from_card(copy.deepcopy(card), device="cpu", seed=seed)
         sd = {k: v.numpy() for k, v in model.state_dict().items()}
         emb_vars, ext_vars = convert_model(sd, card)
         emb, ext = from_jax_variables(emb_vars, ext_vars)
@@ -43,18 +43,19 @@ class TestWeightBridge:
         """A reference-style checkpoint ({"model": state_dict}, embedder.* and
         detector.* names) loads through from_card(checkpoint=...)."""
         card = tiny_card()
-        a = VideoSeal.from_card(copy.deepcopy(card), seed=5)
+        a = VideoSeal.from_card(copy.deepcopy(card), device="cpu", seed=5)
         path = str(tmp_path / "ckpt.pth")
         torch.save({"model": {f"module.{k}": v for k, v in a.state_dict().items()}}, path)
-        b = VideoSeal.from_card(copy.deepcopy(card), checkpoint=path, seed=6)
+        b = VideoSeal.from_card(copy.deepcopy(card), checkpoint=path, device="cpu",
+                                seed=6)
         for k, v in a.state_dict().items():
             assert torch.equal(b.state_dict()[k], v), k
 
     def test_load_strict(self):
         """The converted dicts load with strict=True into fresh modules."""
         card = tiny_card()
-        a = VideoSeal.from_card(copy.deepcopy(card), seed=3)
-        b = VideoSeal.from_card(copy.deepcopy(card), seed=4)
+        a = VideoSeal.from_card(copy.deepcopy(card), device="cpu", seed=3)
+        b = VideoSeal.from_card(copy.deepcopy(card), device="cpu", seed=4)
         emb, ext = from_jax_variables(*convert_model(
             {k: v.numpy() for k, v in a.state_dict().items()}, card))
         b.embedder.load_state_dict(emb, strict=True)
@@ -77,6 +78,19 @@ class TestCards:
         assert set(CARDS) == names
         assert load_card("videoseal") == CARDS["videoseal_1.0"]
 
+    def test_default_device_is_the_card(self):
+        """from_card and load build on the CUDA device unless asked for the
+        CPU: without one they raise instead of building on the CPU."""
+        from videoseal_tpu_torch import load
+        if torch.cuda.is_available():
+            assert VideoSeal.from_card(tiny_card()).device.type == "cuda"
+            return
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            VideoSeal.from_card(tiny_card())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load("videoseal_1.0")
+        assert VideoSeal.from_card(tiny_card(), device="cpu").device.type == "cpu"
+
     def test_unported_cards_raise(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VideoSeal.from_card(load_card("videoseal_0.0"))
+            VideoSeal.from_card(load_card("videoseal_0.0"), device="cpu")

@@ -65,6 +65,31 @@ def test_pixel_decoder_matches_linen(models):
     np.testing.assert_allclose(to_np(got), want, atol=1e-5)
 
 
+def test_proportional_dim_matches_jax():
+    """chunkyseal's proportional_dim scales the ConvNeXt dims by
+    sqrt(nbits / 128): the port's extractor has the JAX one's dims (the JAX
+    weights load strictly) and its output."""
+    from videoseal_tpu.models.extractor import build_extractor as jax_build
+    from videoseal_tpu_torch.models.extractor import build_extractor
+    card = tiny_card(img_size=S)
+    params = card["extractor"]["params"]
+    params["proportional_dim"] = True
+    params["encoder"]["dims"] = [32, 64, 128, 256]
+    want_dims = list(jax_build("convnext_tiny", params, S, NBITS).module.encoder["dims"])
+    assert want_dims == [11, 22, 45, 90]     # int(d * sqrt(16 / 128))
+    spec = build_extractor("convnext_tiny", params, S, NBITS)
+    assert [stage[0].dwconv.in_channels for stage in spec.module.convnext.stages] == want_dims
+    assert spec.module.pixel_decoder.linear.in_features == want_dims[-1]
+    jm = jax_model(card, seed=6)
+    pm = port_model(card, jm)                # load_state_dict is strict
+    x = np.random.default_rng(7).uniform(0, 1, (2, S, S, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(jm.extractor_spec.module.apply)(jm.extractor_vars,
+                                                              jnp.asarray(x)))
+    with torch.no_grad():
+        got = pm.extractor(torch.from_numpy(x))
+    np.testing.assert_allclose(to_np(got), want, atol=2e-2)  # as test_extractor_matches_linen
+
+
 @pytest.mark.parametrize("io", [(1, 1), (1, 3), (3, 1), (3, 3)])
 def test_jnd_heatmaps(io):
     x = np.random.default_rng(3).uniform(0, 1, (2, 24, 40, 3)).astype(np.float32)

@@ -1,5 +1,6 @@
 """Guards for the machine that serves the port, which has no jax, flax or
-yaml: the package must import and run its planar slice without them."""
+yaml: the package must import and run its planar and NHWC paths without
+them."""
 
 import os
 import re
@@ -29,6 +30,16 @@ out = model.embed_detect_planar(vt.pack_planar(imgs), 160, 256, lowres_attenuati
 assert tuple(out["imgs_w"].shape) == (4, 3, 192, 256)
 assert tuple(out["preds"].shape) == (4, 17) and bool(torch.isfinite(out["preds"]).all())
 assert tuple(vt.aggregate_message(out["preds"]).shape) == (1, 16)
+rng = np.random.default_rng(1)
+frames = torch.as_tensor(rng.integers(0, 256, (5, 72, 120, 3), np.uint8))
+emb = model.embed(frames, is_video=True)
+assert emb["imgs_w"].dtype == torch.uint8 and tuple(emb["imgs_w"].shape) == (5, 72, 120, 3)
+assert tuple(emb["preds_w"].shape) == (5, 72, 120, 1)
+det = model.detect(emb["imgs_w"])["preds"]
+assert tuple(det.shape) == (5, 17) and bool(torch.isfinite(det).all())
+assert tuple(model.extract_message(emb["imgs_w"]).shape) == (1, 16)
+fl = torch.as_tensor(rng.uniform(0, 1, (2, 72, 120, 3)).astype(np.float32))
+assert model.embed(fl)["imgs_w"].dtype == torch.float32
 print("OK")
 """
 

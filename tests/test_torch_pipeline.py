@@ -10,7 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port import NBITS, jax_model, port_model, tiny_card, to_np
+from torch_port import LOGIT_ATOL, NBITS, jax_model, port_model, tiny_card, to_np
 
 from videoseal_tpu.kernels.fused_planar import pack_planar as jax_pack
 from videoseal_tpu.models.videoseal import aggregate_message as jax_aggregate
@@ -21,11 +21,6 @@ torch.set_num_threads(1)
 F, H, W = 4, 160, 256
 MODES = {"scored": dict(lowres_attenuation=True, fused_detect=True),
          "default": dict(lowres_attenuation=False, fused_detect=False)}
-# logits: every ConvNeXt block of the port goes through K2, which rounds to
-# bf16 inside as the TPU kernel does, while the JAX extractor on the CPU is
-# the all-f32 linen module; the fused detect input also differs by bf16
-# rounding of the downscale
-LOGIT_ATOL = 3e-2
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +108,7 @@ def test_expand_video_mode(mode, n, total):
 
 def test_fused_detect_needs_lane_aligned_size():
     from videoseal_tpu_torch import VideoSeal
-    model = VideoSeal.from_card(tiny_card(img_size=64))
+    model = VideoSeal.from_card(tiny_card(img_size=64), device="cpu")
     tp = pack_planar(torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="img_size % 128"):
         model.embed_detect_planar(tp, 64, 64, lowres_attenuation=True)

@@ -14,19 +14,28 @@ import numpy as np
 import torch
 
 NBITS = 16
+# detector logits: every ConvNeXt block of the port goes through K2, which
+# rounds to bf16 inside as the TPU kernel does, while the JAX extractor on the
+# CPU is the all-f32 linen module; the planar fused detect input also differs
+# by bf16 rounding of the downscale
+LOGIT_ATOL = 3e-2
 
 
-def tiny_card(img_size: int = 128, step: int = 2, chunk: int = 4) -> dict:
-    """The tiny card of tests/test_e2e_golden.py, at a given processing size."""
+def tiny_card(img_size: int = 128, step: int = 2, chunk: int = 4, out_channels: int = 1,
+              blending: str = "additive", video_mode: str = "repeat") -> dict:
+    """The tiny card of tests/test_e2e_golden.py, at a given processing size.
+    out_channels=3 makes an RGB-in, RGB-out embedder (chunkyseal's layout)."""
+    yuv = out_channels == 1
     return {
         "args": {"attenuation": "jnd_1_1", "nbits": NBITS,
                  "hidden_size_multiplier": 2, "img_size_proc": img_size,
-                 "blending_method": "additive", "scaling_w": 0.2,
+                 "blending_method": blending, "scaling_w": 0.2,
                  "scaling_i": 1.0, "videoseal_chunk_size": chunk,
-                 "videoseal_step_size": step, "video_mode": "repeat"},
-        "embedder": {"model": "unet_tiny_yuv", "params": {
+                 "videoseal_step_size": step, "video_mode": video_mode},
+        "embedder": {"model": "unet_tiny_yuv" if yuv else "unet_tiny", "params": {
             "msg_processor": {"msg_processor_type": "binary+concat"},
-            "unet": {"in_channels": 1, "out_channels": 1, "z_channels": 4,
+            "unet": {"in_channels": 1 if yuv else 3, "out_channels": out_channels,
+                     "z_channels": 4,
                      "num_blocks": 1, "activation": "relu",
                      "normalization": "batch", "z_channels_mults": [1, 2],
                      "last_tanh": True}}},
@@ -72,7 +81,8 @@ def jax_model(card: dict, seed: int = 0):
     evars = jax.jit(emb.module.init)(k1, jnp.zeros((1, s, s, 1 if emb.yuv else 3)),
                                      jnp.zeros((1, a["nbits"]), jnp.int32))
     xvars = jax.jit(ext.module.init)(k2, jnp.zeros((1, s, s, 3)))
-    cfg = PipelineConfig(img_size=s, chunk_size=a["videoseal_chunk_size"],
+    cfg = PipelineConfig(img_size=s, blending_method=a["blending_method"],
+                         chunk_size=a["videoseal_chunk_size"],
                          step_size=a["videoseal_step_size"], video_mode=a["video_mode"],
                          yuv=emb.yuv, nbits=a["nbits"])
     rng = np.random.default_rng(seed + 100)
@@ -86,7 +96,7 @@ def port_model(card: dict, jm):
     from videoseal_tpu_torch import VideoSeal
     from videoseal_tpu_torch.utils.convert import from_jax_variables
 
-    model = VideoSeal.from_card(copy.deepcopy(card))
+    model = VideoSeal.from_card(copy.deepcopy(card), device="cpu")
     emb, ext = from_jax_variables(jm.embedder_vars, jm.extractor_vars)
     model.embedder.load_state_dict(emb)
     model.extractor.load_state_dict(ext)

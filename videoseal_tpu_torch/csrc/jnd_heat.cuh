@@ -1,0 +1,43 @@
+// The JND heat of one pixel (jnd_1_1: luminance masking and contrast
+// masking combined with an overlap term), the math of
+// videoseal_tpu/kernels/fused_blend.py::_jnd_heatmap_tile, shared by the
+// kernels of jnd_delta.cu.
+//
+// L points at the luminance (0..255) at (y - 2, x - 2) of a row-major tile
+// with row stride ld; the 5x5 neighbourhood L[i * ld + j], 0 <= i, j < 5,
+// must be staged, with zeros outside the image.
+//
+// The sums run in the order of the plain version
+// (kernels/fused_blend.py::_heat_plain), and the products that feed a sum
+// are __fmul_rn so that the compiler does not contract them into FMAs that
+// round otherwise.
+
+#pragma once
+
+__device__ __forceinline__ float jnd_heat(const float* __restrict__ L, int ld) {
+  // luminance masking: the 5x5 kernel is box5 + box3 - 2 * centre, over 32
+  float c5 = 0.f;
+  for (int j = 0; j < 5; ++j)
+    c5 += (((L[j] + L[ld + j]) + L[2 * ld + j]) + L[3 * ld + j]) + L[4 * ld + j];
+  float c3 = 0.f;
+  for (int j = 1; j < 4; ++j) c3 += (L[ld + j] + L[2 * ld + j]) + L[3 * ld + j];
+  float la = __fmul_rn(__fsub_rn(__fadd_rn(c5, c3), 2.f * L[2 * ld + 2]), 1.f / 32.f);
+  const float lo =
+      17.f * (1.f - sqrtf(__fadd_rn(__fmul_rn(la, 1.f / 127.f), 1e-5f)));
+  const float hi = __fadd_rn(__fmul_rn(3.f / 128.f, la - 127.f), 3.f);
+  la = la <= 127.f ? lo : hi;
+
+  // contrast masking: separable Sobel, cm = 0.117 * 16 * cm2^1.2 / (cm2 + 676)
+  const float t3 = __fadd_rn(L[ld + 3] + 2.f * L[2 * ld + 3], L[3 * ld + 3]);
+  const float t1 = __fadd_rn(L[ld + 1] + 2.f * L[2 * ld + 1], L[3 * ld + 1]);
+  const float gx = t3 - t1;
+  const float gy = __fadd_rn((L[ld + 1] - L[3 * ld + 1]) + 2.f * (L[ld + 2] - L[3 * ld + 2]),
+                             L[ld + 3] - L[3 * ld + 3]);
+  const float cm2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+  float cm = 0.f;
+  if (cm2 > 0.f) cm = __fmul_rn(16.f, expf(logf(fmaxf(cm2, 1e-20f)) * 1.2f)) / (cm2 + 676.f);
+  cm = __fmul_rn(0.117f, cm);
+
+  const float heat = __fsub_rn(__fadd_rn(la, cm), __fmul_rn(0.3f, fminf(la, cm)));
+  return __fmul_rn(fmaxf(heat, 0.f), 1.f / 255.f);
+}

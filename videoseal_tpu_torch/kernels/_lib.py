@@ -1,10 +1,11 @@
 """Build and load the hand-written Hopper kernels.
 
-All CUDA sources in ``videoseal_tpu_torch/csrc/`` compile with nvcc into one
-shared library with a plain C interface, loaded with ctypes. The build runs at
-first use, into ``videoseal_tpu_torch/_build/<hash>/``, keyed by a hash of the
-sources and flags, so an unchanged tree reuses its library and a changed one
-rebuilds. Nothing here runs when the package is imported.
+All CUDA sources in ``videoseal_tpu_torch/csrc/`` compile with nvcc, one
+process per ``.cu`` file, all started together, and link into one shared
+library with a plain C interface, loaded with ctypes. The build runs at first
+use, into ``videoseal_tpu_torch/_build/<hash>/``, keyed by a hash of the
+sources (headers included) and flags, so an unchanged tree reuses its library
+and a changed one rebuilds. Nothing here runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as c_void_p)
@@ -31,6 +32,9 @@ SIGNATURES = {
     "vs_cnx_block_a_bf16": [P] * 9 + [I] * 5 + [P],
     "vs_cnx_block_b_f32": [P] * 8 + [I] * 5 + [P],
     "vs_cnx_block_b_bf16": [P] * 8 + [I] * 5 + [P],
+    "vs_jnd_delta_up": [P, I, P, P, P, I, P] + [I] * 4 + [F] * 4 + [P],
+    "vs_jnd_delta": [P, I, P, P] + [I] * 3 + [F] * 4 + [P],
+    "vs_jnd_blend": [P, P, I, I, P] + [I] * 3 + [F] * 5 + [P],
 }
 
 _lib = None
@@ -49,6 +53,41 @@ def sources() -> list[str]:
                   + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+def _build(out_dir: str, so: str) -> None:
+    """One nvcc per .cu file, all running at once, then one link; every
+    process's output goes to out_dir/build.log."""
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs, procs = [], []
+    for src in (s for s in sources() if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)))
+    logs, failed = [], []
+    for src, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out[-4000:]}")
+    tmp = f"{so}.{tag}.tmp"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                              text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write("\n".join(logs))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, so)
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib
@@ -62,16 +101,7 @@ def library() -> ctypes.CDLL:
     out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
     so = os.path.join(out_dir, "libvideoseal_kernels.so")
     if not os.path.exists(so):
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cu = [s for s in sources() if s.endswith(".cu")]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
+        _build(out_dir, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -7,6 +7,7 @@ the detection logit, the rest are the bit logits.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -44,7 +45,9 @@ def build_extractor(name: str, cfg: dict, img_size: int, nbits: int) -> Extracto
     pd = cfg.get("pixel_decoder", {})
     pd["nbits"] = nbits
     if cfg.get("proportional_dim", False):
-        raise NotImplementedError("proportional_dim (chunkyseal): ROADMAP.md 1.2")
+        # chunkyseal: the dims scale with sqrt(nbits / 128)
+        mult = math.sqrt(nbits / 128)
+        enc = dict(enc, dims=[int(d * mult) for d in enc["dims"]])
     pd["embed_dim"] = enc.get("dims", (96, 192, 384, 768))[-1]
     return ExtractorSpec(ConvnextExtractor(encoder=enc, pixel_decoder=pd), nbits,
                          pd.get("pixelwise", False))

@@ -1,9 +1,16 @@
-"""VideoSeal planar serving pipeline, counterpart of ``videoseal_tpu/models/videoseal.py``.
+"""VideoSeal pipelines, counterpart of ``videoseal_tpu/models/videoseal.py``.
 
-Padded planar u8 frames in (``kernels/fused_planar.planar_shape``), planar u8
-watermarked frames and (F, 1 + nbits) detector logits out. The two kernels on
-this path, K1 (blend) and K2 (ConvNeXt block), run as Hopper kernels on CUDA
-tensors and as their plain versions on CPU tensors.
+Two paths:
+  * NHWC (``VideoSeal.embed / detect / extract_message``): (B|F, H, W, 3)
+    frames, float in [0, 1] or u8, in and out. The full-resolution JND runs
+    through K4 (``kernels/fused_blend.fused_jnd_delta_up``) for a 1-channel
+    prediction and through K6 (``fused_jnd_blend``) for a 3-channel one on
+    float frames; detect goes through K2.
+  * planar (``embed_planar / detect_planar / embed_detect_planar``): padded
+    planar u8 frames (``kernels/fused_planar.planar_shape``) in, planar u8
+    watermarked frames and (F, 1 + nbits) logits out, through K1 and K2.
+Every kernel runs as its Hopper kernel on CUDA tensors and as its plain
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,10 +20,13 @@ import dataclasses
 
 import torch
 
+from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_delta_up, supports_fused_blend
 from ..kernels.fused_planar import fused_jnd_blend_planar, resize_planar
 from ..modules.jnd import JND, build_attenuation
 from ..modules.msg_processor import get_random_msg
 from ..ops.color import rgb_to_y
+from ..ops.resize import resize_bilinear
+from .blender import blend
 from .embedder import EmbedderSpec, build_embedder
 from .extractor import ExtractorSpec, build_extractor
 
@@ -30,6 +40,7 @@ class PipelineConfig:
     resize_precision="default" runs the resizes in bf16. The full-res blend
     math stays float32."""
     img_size: int = 256
+    clamp: bool = True
     blending_method: str = "additive"
     chunk_size: int = 32
     step_size: int = 4
@@ -73,6 +84,89 @@ def _chunked_apply(fn, xs: tuple, chunk_size: int) -> torch.Tensor:
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
+def _make_run_embedder(embedder, cfg: PipelineConfig, pre_scale: float | None = None):
+    """Embedder forward over a (frames, msgs) chunk: optional input rescale
+    (1/255 for u8 frames), YUV-Y select, compute-dtype cast."""
+    cdtype = _DTYPES[cfg.compute_dtype]
+
+    def run_embedder(batch):
+        inp, m = batch
+        if pre_scale is not None:
+            inp = inp * pre_scale
+        x = rgb_to_y(inp) if cfg.yuv else inp
+        return embedder(x.to(cdtype), m)
+
+    return run_embedder
+
+
+def embed_pipeline(embedder, attenuation: JND | None, cfg: PipelineConfig,
+                   imgs: torch.Tensor, msgs: torch.Tensor, scaling_w: float,
+                   scaling_i: float, is_video: bool, lowres_attenuation: bool):
+    """NHWC embed. imgs (B|F, H, W, 3) float in [0, 1] or u8; msgs (B, nbits)
+    for images, (1, nbits) for video. Returns (imgs_w, preds_w): imgs_w in
+    imgs' dtype (u8 rounded and clamped; f32 without clamp when
+    cfg.clamp=False), preds_w the full-resolution prediction (F, H, W, C)."""
+    h, w = imgs.shape[-3], imgs.shape[-2]
+    s = cfg.img_size
+    is_u8 = not imgs.is_floating_point()
+    run_embedder = _make_run_embedder(embedder, cfg, pre_scale=1.0 / 255.0 if is_u8 else None)
+    lowres = attenuation is not None and lowres_attenuation
+
+    with torch.no_grad():
+        if is_video:
+            # key frames only, unless the lowres heatmap needs every frame
+            if lowres:
+                imgs_res = resize_bilinear(imgs, s, s, precision=cfg.resize_precision)
+                keys = imgs_res[::cfg.step_size]
+            else:
+                keys = resize_bilinear(imgs[::cfg.step_size], s, s,
+                                       precision=cfg.resize_precision)
+            key_msgs = msgs[:1].expand(keys.shape[0], msgs.shape[-1])
+            preds = _chunked_apply(run_embedder, (keys, key_msgs), cfg.chunk_size)
+            preds = _expand_video_mode(preds, imgs.shape[0], cfg.step_size, cfg.video_mode)
+        else:
+            imgs_res = resize_bilinear(imgs, s, s, precision=cfg.resize_precision)
+            preds = _chunked_apply(run_embedder, (imgs_res, msgs), cfg.chunk_size)
+
+    preds = preds.float()  # the full-resolution watermark math stays f32
+    if lowres:
+        lr = imgs_res.float()
+        if is_u8:
+            lr = lr * (1.0 / 255.0)
+        preds = attenuation.heatmaps(lr) * preds
+    preds_full = resize_bilinear(preds, h, w, precision=cfg.resize_precision)
+    if attenuation is not None and not lowres:
+        if cfg.clamp and supports_fused_blend(preds_full.shape[-1], attenuation,
+                                              cfg.blending_method):
+            if preds_full.shape[-1] == 1:
+                # the kernel emits the delta plane, with the prediction's
+                # upsample inside it; the RGB blend is one elementwise pass here
+                delta = fused_jnd_delta_up(imgs, preds[..., 0], scaling_w)
+                if is_u8:
+                    out = imgs.float().mul_(scaling_i)
+                    out += 255.0 * delta[..., None]
+                    return out.round_().clamp_(0.0, 255.0).to(torch.uint8), preds_full
+                return torch.clamp(scaling_i * imgs + delta[..., None], 0.0, 1.0), preds_full
+            if not is_u8:
+                return (fused_jnd_blend(imgs, preds_full.contiguous(), scaling_i, scaling_w),
+                        preds_full)
+        hm_in = imgs.float() * (1.0 / 255.0) if is_u8 else imgs
+        preds_full = attenuation.heatmaps(hm_in) * preds_full
+    if is_u8:
+        x = imgs.float()
+        if cfg.blending_method == "additive":
+            out = scaling_i * x + 255.0 * scaling_w * preds_full
+        else:
+            out = 255.0 * blend(cfg.blending_method, x * (1.0 / 255.0), preds_full,
+                                scaling_i, scaling_w)
+        imgs_w = out.round().clamp(0.0, 255.0).to(torch.uint8) if cfg.clamp else out
+        return imgs_w, preds_full
+    imgs_w = blend(cfg.blending_method, imgs, preds_full, scaling_i, scaling_w)
+    if cfg.clamp:
+        imgs_w = torch.clamp(imgs_w, 0.0, 1.0)
+    return imgs_w, preds_full
+
+
 def embed_pipeline_planar(embedder, attenuation: JND, cfg: PipelineConfig,
                           imgs_p: torch.Tensor, msgs: torch.Tensor, scaling_w: float,
                           scaling_i: float, h: int, w: int,
@@ -88,13 +182,7 @@ def embed_pipeline_planar(embedder, attenuation: JND, cfg: PipelineConfig,
         raise ValueError("the planar path needs JND attenuation and additive blending")
     lowres = cfg.lowres_attenuation if lowres_attenuation is None else lowres_attenuation
     s = cfg.img_size
-    cdtype = _DTYPES[cfg.compute_dtype]
-
-    def run_embedder(batch):
-        inp, m = batch
-        x = rgb_to_y(inp) if cfg.yuv else inp
-        return embedder(x.to(cdtype), m)
-
+    run_embedder = _make_run_embedder(embedder, cfg)
     if lowres:
         frames_res = resize_planar(imgs_p, h, w, s, s, precision=cfg.resize_precision)
         keys = frames_res[::cfg.step_size]
@@ -129,6 +217,15 @@ def _detect_resized(extractor, cfg: PipelineConfig, imgs_res: torch.Tensor) -> t
     with torch.no_grad():
         return _chunked_apply(lambda b: extractor(b[0].to(cdtype)).float(),
                               (imgs_res,), cfg.chunk_size)
+
+
+def detect_pipeline(extractor, cfg: PipelineConfig, imgs: torch.Tensor) -> torch.Tensor:
+    """Detect over NHWC frames, float in [0, 1] or u8."""
+    s = cfg.img_size
+    imgs_res = resize_bilinear(imgs, s, s, precision=cfg.resize_precision)
+    if not imgs.is_floating_point():
+        imgs_res = imgs_res * (1.0 / 255.0)
+    return _detect_resized(extractor, cfg, imgs_res)
 
 
 def detect_pipeline_planar(extractor, cfg: PipelineConfig, imgs_wp: torch.Tensor,
@@ -175,8 +272,9 @@ def init_weights(module: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 class VideoSeal:
-    """The planar serving model: embed_planar / detect_planar /
-    embed_detect_planar over padded planar u8 frames."""
+    """The user-facing model: embed / detect / extract_message over NHWC
+    frames, and embed_planar / detect_planar / embed_detect_planar over
+    padded planar u8 frames."""
 
     def __init__(self, embedder_spec: EmbedderSpec, extractor_spec: ExtractorSpec,
                  attenuation: JND | None, cfg: PipelineConfig, scaling_w: float = 0.2,
@@ -200,11 +298,41 @@ class VideoSeal:
     def nbits(self) -> int:
         return self.cfg.nbits
 
-    def get_random_msg(self, bsz: int = 1) -> torch.Tensor:
-        return get_random_msg(self.nbits, bsz, self.generator, self.device)
+    def get_random_msg(self, bsz: int = 1, nb_repetitions: int = 1) -> torch.Tensor:
+        return get_random_msg(self.nbits, bsz, nb_repetitions, self.generator, self.device)
 
-    def _msgs(self, msgs):
-        return self.get_random_msg(1) if msgs is None else torch.as_tensor(msgs, device=self.device)
+    def _msgs(self, msgs, bsz: int = 1):
+        if msgs is None:
+            return self.get_random_msg(bsz)
+        return torch.as_tensor(msgs, device=self.device)
+
+    # -- NHWC path ----------------------------------------------------------
+    def embed(self, imgs, msgs=None, is_video: bool = False,
+              lowres_attenuation: bool | None = None) -> dict:
+        """imgs (B|F, H, W, 3), float in [0, 1] or u8, moved to the model's
+        device. Returns imgs_w (imgs' dtype), preds_w (full-resolution
+        prediction) and msgs (one row per frame)."""
+        imgs = torch.as_tensor(imgs, device=self.device).contiguous()
+        msgs = self._msgs(msgs, 1 if is_video else imgs.shape[0])
+        if is_video and msgs.shape[0] != 1:
+            raise ValueError("a video takes one message: msgs must have one row")
+        lowres = self.cfg.lowres_attenuation if lowres_attenuation is None else lowres_attenuation
+        imgs_w, preds_w = embed_pipeline(self.embedder, self.attenuation, self.cfg, imgs, msgs,
+                                         self.scaling_w, self.scaling_i, is_video, lowres)
+        out_msgs = msgs[:1].expand(imgs.shape[0], msgs.shape[-1]) if is_video else msgs
+        return {"imgs_w": imgs_w, "preds_w": preds_w, "msgs": out_msgs}
+
+    def detect(self, imgs, is_video: bool = False) -> dict:
+        """imgs (B|F, H, W, 3), float in [0, 1] or u8 -> preds (B|F, 1 + nbits)."""
+        imgs = torch.as_tensor(imgs, device=self.device)
+        return {"preds": detect_pipeline(self.extractor, self.cfg, imgs)}
+
+    def extract_message(self, imgs, aggregation: str = "avg") -> torch.Tensor:
+        """The video's message, (1, nbits) int32, from its frames' logits."""
+        preds = self.detect(imgs, is_video=True)["preds"]
+        if preds.dim() == 4:  # pixelwise extractor: average spatially first
+            preds = preds.mean(dim=(1, 2))
+        return aggregate_message(preds, aggregation)
 
     # -- planar-u8 serving path -------------------------------------------
     def embed_planar(self, imgs_p, h: int, w: int, msgs=None,
@@ -274,8 +402,14 @@ class VideoSeal:
         self.extractor.load_state_dict(ext)
 
     @classmethod
-    def from_card(cls, card: dict, checkpoint: str | None = None, device="cpu",
+    def from_card(cls, card: dict, checkpoint: str | None = None, device="cuda",
                   seed: int = 0) -> "VideoSeal":
+        """Build on `device` (the card unless the caller asks for the CPU),
+        at random init from `seed` unless a checkpoint is given."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VideoSeal.from_card builds on the CUDA device by default and "
+                               "none is available; pass device='cpu' to build on the CPU")
         args = card.get("args", {})
         nbits = int(args.get("nbits", 256))
         img_size = int(args.get("img_size_proc", args.get("img_size", 256)))

@@ -32,8 +32,11 @@ def _depthwise(x: torch.Tensor, kern2d) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class JND:
+    """in_channels=1: luminance path; 3: per-channel. blue tints a 3-channel
+    heatmap of the luminance path by [0.5, 0.5, 1.0]."""
     in_channels: int = 1
     out_channels: int = 3
+    blue: bool = False
 
     def _la(self, x255, eps: float = 1e-5):
         la = _depthwise(x255, _LUM) / 32.0
@@ -60,6 +63,8 @@ class JND:
         h = torch.clamp(la + cm - clc * torch.minimum(la, cm), min=0.0)
         if self.out_channels == 3 and self.in_channels == 1:
             h = h.expand(*h.shape[:-1], 3)
+            if self.blue:
+                h = h * torch.tensor((0.5, 0.5, 1.0), device=h.device)
         elif self.out_channels == 1 and self.in_channels == 3:
             h = torch.sum(h / 3.0, dim=-1, keepdim=True)
         h = h / 255.0

@@ -37,7 +37,11 @@ class MsgProcessor(nn.Module):
         return torch.cat([latents, emb], dim=1)
 
 
-def get_random_msg(nbits: int, bsz: int = 1, generator: torch.Generator | None = None,
-                   device=None) -> torch.Tensor:
-    """(bsz, nbits) int64 random bits drawn from `generator` (on the CPU)."""
-    return torch.randint(0, 2, (bsz, nbits), generator=generator).to(device)
+def get_random_msg(nbits: int, bsz: int = 1, nb_repetitions: int = 1,
+                   generator: torch.Generator | None = None, device=None) -> torch.Tensor:
+    """(bsz, nbits) int64 random bits drawn from `generator` (on the CPU).
+    nb_repetitions > 1 draws nbits / nb_repetitions bits and tiles them."""
+    if nbits % nb_repetitions:
+        raise ValueError(f"nbits={nbits} is not a multiple of nb_repetitions={nb_repetitions}")
+    aux = torch.randint(0, 2, (bsz, nbits // nb_repetitions), generator=generator)
+    return aux.repeat(1, nb_repetitions).to(device)

@@ -17,10 +17,11 @@ def load_card(name: str) -> dict:
     return copy.deepcopy(CARDS[name])
 
 
-def load(name: str = DEFAULT_CARD, checkpoint: str | None = None, device="cpu",
+def load(name: str = DEFAULT_CARD, checkpoint: str | None = None, device="cuda",
          seed: int = 0):
     """Build a VideoSeal from a card name ("videoseal" is videoseal_1.0) on
-    `device`, at random init from `seed` unless a checkpoint is given."""
+    `device` (the card unless the caller asks for the CPU), at random init
+    from `seed` unless a checkpoint is given."""
     from ..models.videoseal import VideoSeal
 
     return VideoSeal.from_card(load_card(name), checkpoint=checkpoint, device=device,
