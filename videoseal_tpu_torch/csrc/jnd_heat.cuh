@@ -1,7 +1,7 @@
 // The JND heat of one pixel (jnd_1_1: luminance masking and contrast
 // masking combined with an overlap term), the math of
-// videoseal_tpu/kernels/fused_blend.py::_jnd_heatmap_tile, shared by the
-// kernels of jnd_delta.cu.
+// videoseal_tpu/kernels/fused_blend.py::_jnd_heatmap_tile, used by the
+// strip kernel of jnd_delta.cuh.
 //
 // L points at the luminance (0..255) at (y - 2, x - 2) of a row-major tile
 // with row stride ld; the 5x5 neighbourhood L[i * ld + j], 0 <= i, j < 5,
@@ -11,9 +11,17 @@
 // (kernels/fused_blend.py::_heat_plain), and the products that feed a sum
 // are __fmul_rn so that the compiler does not contract them into FMAs that
 // round otherwise.
+//
+// HM selects what is returned, for the K7 probe (kernels/jnd_probe.py)
+// after videoseal_tpu/kernels/jnd_probe.py's variants: kHeatNoSqrt is the
+// production heat (cm2^1.2); kHeatSqrt the same heat through sqrt(cm2)^2.4;
+// kHeatSums the raw stencil sums la + cm2 with no transcendentals.
 
 #pragma once
 
+enum HeatMode { kHeatCopy = 0, kHeatSums = 1, kHeatSqrt = 2, kHeatNoSqrt = 3 };
+
+template <int HM = kHeatNoSqrt>
 __device__ __forceinline__ float jnd_heat(const float* __restrict__ L, int ld) {
   // luminance masking: the 5x5 kernel is box5 + box3 - 2 * centre, over 32
   float c5 = 0.f;
@@ -22,10 +30,6 @@ __device__ __forceinline__ float jnd_heat(const float* __restrict__ L, int ld) {
   float c3 = 0.f;
   for (int j = 1; j < 4; ++j) c3 += (L[ld + j] + L[2 * ld + j]) + L[3 * ld + j];
   float la = __fmul_rn(__fsub_rn(__fadd_rn(c5, c3), 2.f * L[2 * ld + 2]), 1.f / 32.f);
-  const float lo =
-      17.f * (1.f - sqrtf(__fadd_rn(__fmul_rn(la, 1.f / 127.f), 1e-5f)));
-  const float hi = __fadd_rn(__fmul_rn(3.f / 128.f, la - 127.f), 3.f);
-  la = la <= 127.f ? lo : hi;
 
   // contrast masking: separable Sobel, cm = 0.117 * 16 * cm2^1.2 / (cm2 + 676)
   const float t3 = __fadd_rn(L[ld + 3] + 2.f * L[2 * ld + 3], L[3 * ld + 3]);
@@ -34,8 +38,20 @@ __device__ __forceinline__ float jnd_heat(const float* __restrict__ L, int ld) {
   const float gy = __fadd_rn((L[ld + 1] - L[3 * ld + 1]) + 2.f * (L[ld + 2] - L[3 * ld + 2]),
                              L[ld + 3] - L[3 * ld + 3]);
   const float cm2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+  if constexpr (HM == kHeatSums) return __fadd_rn(la, cm2);
+
+  const float lo =
+      17.f * (1.f - sqrtf(__fadd_rn(__fmul_rn(la, 1.f / 127.f), 1e-5f)));
+  const float hi = __fadd_rn(__fmul_rn(3.f / 128.f, la - 127.f), 3.f);
+  la = la <= 127.f ? lo : hi;
   float cm = 0.f;
-  if (cm2 > 0.f) cm = __fmul_rn(16.f, expf(logf(fmaxf(cm2, 1e-20f)) * 1.2f)) / (cm2 + 676.f);
+  if constexpr (HM == kHeatSqrt) {
+    if (cm2 > 0.f)
+      cm = __fmul_rn(16.f, expf(logf(fmaxf(sqrtf(cm2), 1e-20f)) * 2.4f)) / (cm2 + 676.f);
+  } else {
+    if (cm2 > 0.f)
+      cm = __fmul_rn(16.f, expf(logf(fmaxf(cm2, 1e-20f)) * 1.2f)) / (cm2 + 676.f);
+  }
   cm = __fmul_rn(0.117f, cm);
 
   const float heat = __fsub_rn(__fadd_rn(la, cm), __fmul_rn(0.3f, fminf(la, cm)));

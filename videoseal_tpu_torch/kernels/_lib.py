@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -32,9 +33,13 @@ SIGNATURES = {
     "vs_cnx_block_a_bf16": [P] * 9 + [I] * 5 + [P],
     "vs_cnx_block_b_f32": [P] * 8 + [I] * 5 + [P],
     "vs_cnx_block_b_bf16": [P] * 8 + [I] * 5 + [P],
+    "vs_cnx_group_f32": [P] * 7 + [I] * 6 + [P],
+    "vs_cnx_group_bf16": [P] * 7 + [I] * 6 + [P],
+    "vs_cnx_probe": [P] * 14 + [I] * 6 + [P],
     "vs_jnd_delta_up": [P, I, P, P, P, I, P] + [I] * 4 + [F] * 4 + [P],
     "vs_jnd_delta": [P, I, P, P] + [I] * 3 + [F] * 4 + [P],
     "vs_jnd_blend": [P, P, I, I, P] + [I] * 3 + [F] * 5 + [P],
+    "vs_jnd_probe": [P, I, P, P] + [I] * 3 + [F] * 4 + [I, I, P],
 }
 
 _lib = None
@@ -55,20 +60,29 @@ def sources() -> list[str]:
 
 def _build(out_dir: str, so: str) -> None:
     """One nvcc per .cu file, all running at once, then one link; every
-    process's output goes to out_dir/build.log."""
+    process's output, and its seconds, go to out_dir/build.log."""
     os.makedirs(out_dir, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
-    objs, procs = [], []
+    objs, procs = [], {}
+    t0 = time.perf_counter()
     for src in (s for s in sources() if s.endswith(".cu")):
         obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
         objs.append(obj)
-        procs.append((src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True)))
+        with open(f"{obj}.log", "w") as log:   # the child keeps its own descriptor
+            procs[src] = (subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                           stdout=log, stderr=subprocess.STDOUT), log.name)
+    secs = {}
+    while len(secs) < len(procs):
+        for src, (proc, _) in procs.items():
+            if src not in secs and proc.poll() is not None:
+                secs[src] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs, failed = [], []
-    for src, proc in procs:
-        out = proc.communicate()[0]
-        logs.append(f"== {os.path.basename(src)}\n{out}")
+    for src, (proc, log_path) in procs.items():
+        with open(log_path) as f:
+            out = f.read()
+        os.remove(log_path)
+        logs.append(f"== {os.path.basename(src)} built in {secs[src]:.1f} s\n{out}")
         if proc.returncode != 0:
             failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out[-4000:]}")
     tmp = f"{so}.{tag}.tmp"

@@ -1,7 +1,7 @@
 """K4, K5, K6: full-resolution JND on NHWC frames.
 
 Counterpart of ``videoseal_tpu/kernels/fused_blend.py``. The CUDA kernels
-(``csrc/jnd_delta.cu``, heat math in ``csrc/jnd_heat.cuh``) say what bounds
+(``csrc/jnd_delta.cu`` and ``.cuh``, heat in ``csrc/jnd_heat.cuh``) say what bounds
 them on the H100 and how they are laid out. This module holds the plain
 PyTorch versions, which follow the kernels' formulation (cm2^1.2 as
 exp(log(cm2) * 1.2), the luminance weights on the input's scale), and the
@@ -56,12 +56,19 @@ def _lum_weights(imgs: torch.Tensor) -> tuple[float, float, float]:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _heat_plain(imgs: torch.Tensor) -> torch.Tensor:
-    """(F, H, W, 3) u8 or [0, 1] float -> (F, H, W) f32 JND heat in [0, 1],
-    in the order of jnd_heat() (csrc/jnd_heat.cuh)."""
+def _luminance(imgs: torch.Tensor) -> torch.Tensor:
+    """(F, H, W, 3) u8 or [0, 1] float -> (F, H, W) f32 luminance in 0..255."""
     c0, c1, c2 = _lum_weights(imgs)
     x = imgs.float()
-    lum = x[..., 0] * c0 + x[..., 1] * c1 + x[..., 2] * c2
+    return x[..., 0] * c0 + x[..., 1] * c1 + x[..., 2] * c2
+
+
+def _heat_plain(imgs: torch.Tensor, mode: str = "full_nosqrt") -> torch.Tensor:
+    """(F, H, W, 3) u8 or [0, 1] float -> (F, H, W) f32 JND heat in [0, 1],
+    in the order of jnd_heat() (csrc/jnd_heat.cuh). mode picks its HeatMode
+    for the K7 probe: "full_nosqrt" the production heat (cm2^1.2), "full"
+    the same through sqrt(cm2)^2.4, "sums" the raw stencil sums la + cm2."""
+    lum = _luminance(imgs)
     _, h, w = lum.shape
     L = F.pad(lum, (2, 2, 2, 2))
     rows = lambda a, i: a[:, i:i + h]
@@ -71,15 +78,23 @@ def _heat_plain(imgs: torch.Tensor) -> torch.Tensor:
     h5 = cols(col5, 0) + cols(col5, 1) + cols(col5, 2) + cols(col5, 3) + cols(col5, 4)
     h3 = cols(col3, 1) + cols(col3, 2) + cols(col3, 3)
     la = (h5 + h3 - 2.0 * lum) * (1.0 / 32.0)
-    lo = 17.0 * (1.0 - torch.sqrt(la * (1.0 / 127.0) + 1e-5))
-    hi = (3.0 / 128.0) * (la - 127.0) + 3.0
-    la = torch.where(la <= 127.0, lo, hi)
     t = rows(L, 1) + 2.0 * rows(L, 2) + rows(L, 3)
     gx = cols(t, 3) - cols(t, 1)
     sd = rows(L, 1) - rows(L, 3)
     gy = cols(sd, 1) + 2.0 * cols(sd, 2) + cols(sd, 3)
     cm2 = gx * gx + gy * gy
-    cm = 16.0 * torch.exp(torch.log(torch.clamp(cm2, min=1e-20)) * 1.2) / (cm2 + 676.0)
+    if mode == "sums":
+        return la + cm2
+    lo = 17.0 * (1.0 - torch.sqrt(la * (1.0 / 127.0) + 1e-5))
+    hi = (3.0 / 128.0) * (la - 127.0) + 3.0
+    la = torch.where(la <= 127.0, lo, hi)
+    if mode == "full":
+        cm = torch.sqrt(cm2)
+        cm = 16.0 * torch.exp(torch.log(torch.clamp(cm, min=1e-20)) * 2.4) / (cm2 + 676.0)
+    elif mode == "full_nosqrt":
+        cm = 16.0 * torch.exp(torch.log(torch.clamp(cm2, min=1e-20)) * 1.2) / (cm2 + 676.0)
+    else:
+        raise ValueError(f"unknown heat mode {mode!r}")
     cm = 0.117 * torch.where(cm2 > 0.0, cm, torch.zeros_like(cm))
     return torch.clamp(la + cm - 0.3 * torch.minimum(la, cm), min=0.0) * (1.0 / 255.0)
 
