@@ -1,16 +1,17 @@
-// K2: one ConvNeXtV2 block, NHWC.
+// The earlier K2 design: one ConvNeXtV2 block, NHWC, as two launches over a
+// (tile, frame) grid, parts (a) and (b) of convnext_block.cuh, whose device
+// functions K3 (convnext_group.cuh) and the K8 probe run. K2 itself is now
+// convnext_dwln.cu and convnext_pw.cu; these entries serve
+// kernels/convnext_block.py::_launch_split, which chip_smoke.py holds K3
+// against bit for bit and times beside the new K2.
 //
-// K2 replaces videoseal_tpu/kernels/convnext_block.py::convnext_block_fused
-// (Pallas body _block_math). Its parts (a) and (b), and why a block is split
-// there, are in convnext_block.cuh; K2 launches each part as a kernel of its
-// own over a (tile, frame) grid.
-//
-// Bound on the H100: at the extractor's shapes (B=32; 64x64x96 down to
-// 8x8x768) the two pointwise products are ~90% of the block's FLOPs, ~1.2
-// GFLOP per block at stage 0; in bytes the block reads x and writes the
-// bf16 4C-wide hidden activation once and reads it back once (~100 MB at
-// stage 0). With simple wmma tiles streaming the weights from L2, the
-// products and the hidden round trip bound it.
+// It replaced videoseal_tpu/kernels/convnext_block.py::convnext_block_fused
+// (Pallas body _block_math). Bound on the H100: at the extractor's shapes
+// (B=32; 64x64x96 down to 8x8x768) the two pointwise products are ~90% of
+// the block's FLOPs, ~1.2 GFLOP per block at stage 0; in bytes the block
+// reads x and writes the bf16 4C-wide hidden activation once and reads it
+// back once (~100 MB at stage 0). With simple wmma tiles streaming the
+// weights from L2, the products and the hidden round trip bound it.
 
 #include "convnext_block.cuh"
 

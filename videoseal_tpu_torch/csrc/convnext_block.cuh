@@ -1,8 +1,10 @@
 // The ConvNeXtV2 block's two parts as device functions, the kernels that
-// launch each part over a (tile, frame) grid, and their launchers: shared by
-// K2 and K3 (convnext_block.cu) and the K8 probe (convnext_probe.cu).
+// launch each part over a (tile, frame) grid, and their launchers: the
+// earlier K2 design, run by K3 (convnext_group.cuh), the K8 probe
+// (convnext_probe.cu) and the split launches of convnext_block.cu. K2 itself
+// is now convnext_dwln.cu and convnext_pw.cu.
 //
-// Design of a block (K2 replaces
+// Design of a block (it replaced
 // videoseal_tpu/kernels/convnext_block.py::convnext_block_fused, Pallas body
 // _block_math):
 //   dw7x7 (f32 sums) + bias -> channel LN (eps 1e-6) -> pw1 (bf16 in, f32 sums)
@@ -25,8 +27,8 @@
 // Part (a) is a template over the depthwise form (per-dy partials, one tap
 // chain, dx-outer chain, bf16 taps and sums), the activation (erf, none,
 // tanh, sigmoid) and a depthwise-only flag that writes the bf16 dw output
-// (without its bias) and stops: the K8 probe's variants. K2 is the instance
-// (per-dy, erf, full block).
+// (without its bias) and stops: the K8 probe's variants. K3 and the split
+// launches run the instance (per-dy, erf, full block).
 
 #pragma once
 

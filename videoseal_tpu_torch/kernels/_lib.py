@@ -29,6 +29,12 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "vs_blend_planar": [P, P, P, P, I, P, P, P, P, I] + [I] * 8 + [F, F, P],
     "vs_detect_height": [P, P, P, I, P, I, I, I, P],
+    "vs_cnx_dwln_f32": [P] * 6 + [I] * 4 + [P],
+    "vs_cnx_dwln_bf16": [P] * 6 + [I] * 4 + [P],
+    "vs_cnx_pw1": [P] * 5 + [I] * 4 + [P],
+    "vs_cnx_grn": [P] * 3 + [I] * 3 + [P],
+    "vs_cnx_pw2_f32": [P] * 7 + [I] * 4 + [P],
+    "vs_cnx_pw2_bf16": [P] * 7 + [I] * 4 + [P],
     "vs_cnx_block_a_f32": [P] * 9 + [I] * 5 + [P],
     "vs_cnx_block_a_bf16": [P] * 9 + [I] * 5 + [P],
     "vs_cnx_block_b_f32": [P] * 8 + [I] * 5 + [P],

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .convnext_block import block_params, convnext_block_fused, convnext_blocks_fused
+from .convnext_block import convnext_block_fused, convnext_blocks_fused, kernel_params
 
 
 def block_groups(depth: int, max_block_group: int = 1) -> list[int]:
@@ -45,8 +45,8 @@ def convnext_apply_fused(encoder, x: torch.Tensor, max_block_group: int = 1) -> 
         j = 0
         for k in block_groups(len(stage), max_block_group):
             if k == 1:
-                x = convnext_block_fused(x, block_params(stage[j]))
+                x = convnext_block_fused(x, kernel_params(stage[j]))
             else:
-                x = convnext_blocks_fused(x, [block_params(stage[jj]) for jj in range(j, j + k)])
+                x = convnext_blocks_fused(x, [kernel_params(stage[jj]) for jj in range(j, j + k)])
             j += k
     return x

@@ -13,7 +13,7 @@ from typing import Sequence
 
 from torch import nn
 
-from ..kernels.convnext_block import block_params, convnext_block_fused
+from ..kernels.convnext_block import convnext_block_fused, kernel_params
 from ..kernels.convnext_fused import convnext_apply_fused
 from .common import GRN, ChannelLayerNorm
 
@@ -30,7 +30,7 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = nn.Linear(4 * dim, dim)
 
     def forward(self, x):
-        return convnext_block_fused(x, block_params(self))
+        return convnext_block_fused(x, kernel_params(self))
 
 
 class ConvNeXtV2(nn.Module):
