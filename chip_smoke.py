@@ -7,8 +7,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      and the torch/CUDA versions;
   2. build: compiles the Hopper kernels from videoseal_tpu_torch/csrc, one
      nvcc per source, all at once;
-  3. K1 (planar blend) against its plain version at 1080p, F=4, both JND
-     branches with and without the detect output; times it at F=128;
+  3. K1 (planar blend) against its plain version at 1080p, F=4, and at
+     720x1280 and 128x200 (the prediction downscaled: the kernel's general
+     width path), F=2, both JND branches with and without the detect output;
+     times each setting at F=128 with its bound, the detect height pass
+     alone, and the full-resolution branch with its heat cut down (the
+     window alone, the stencil sums: blend_planar_attribution);
   4. K2 (ConvNeXt block: dwln, pw1, grn_stats, pw2) against its plain
      version at the four stage shapes, B=32, and at 3x12x20x96 and
      3x12x20x192 (masked last M tiles), bf16 and f32; per stage in bf16
@@ -20,10 +24,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      card-default modes; checks shapes, launch counts, the scaling_w=0
      identity, CPU-vs-card agreement on 4 frames; times it;
   6. K4, K5, K6 (full-resolution JND on NHWC frames) against their plain
-     versions at 1080p, F=4 (K4 on u8 and f32 frames, K5, K6 with 1- and
-     3-channel predictions in f32 and bf16), K4, K5 and K6 again at F=2 and
-     1078x1922 (ragged strips and column chunks), and K5(resize(pred))
-     against K4(pred); times each and its plain version at F=128;
+     versions at 1080p, F=4 (K4's delta and blend modes on u8 and f32 frames,
+     K5, K6 with 1- and 3-channel predictions in f32 and bf16), K4's four
+     cases, K5 and K6 again at F=2 and 1078x1922 (unaligned rows, ragged
+     groups, strips and chunks), K4's four at F=2 and 120x200 (its general
+     width path), and K5(resize(pred)) against K4(pred);
+     times each and its plain version at F=128;
   7. the NHWC slice: videoseal_1.0 at random init (seed 0) in bf16, embed
      of 128 u8 1080p frames as a video, detect and extract_message of the
      result, embed of 32 float frames as images; checks shapes, launch
@@ -57,8 +63,11 @@ go to chiprun_out/chip_smoke.json.
     python3 chip_smoke.py --profile
 
 also traces one call of each planar mode and of the NHWC slice with
-torch.profiler and prints the device time by kernel and the device's busy
-share (tables in chiprun_out/).
+torch.profiler and prints the device time by kernel, the device's busy
+share, the torch elementwise kernels' and the GEMMs' time and the
+aten::copy_ calls (tables in chiprun_out/); and checks that K1's and K4's
+wrappers launch their own kernels only (no width-resize GEMM) and that the
+NHWC embed launches nothing after K4.
 """
 
 from __future__ import annotations
@@ -98,9 +107,11 @@ SLICE_FLOAT_ATOL = SLICE_U8_MAX / 255.0
 # bf16 rounding of the hidden may flip: held to the same bound.
 GROUPED_CPU_ATOL = 2e-2
 # K4/K5: the plain versions repeat the kernels' f32 arithmetic with sums in
-# another order (K4's lift as a dense matmul): ~1e-5 relative on the delta.
-# K6 output in [0, 1]: that delta error plus f32 rounding (6e-8)
-DELTA_RTOL, BLEND_ATOL = 1e-5, 1e-6
+# another order (K4's width resize and lift as dense matmuls): ~1e-5 relative
+# on the delta. K6 output in [0, 1]: that delta error plus f32 rounding
+# (6e-8). K4's blend mode on f32 frames: the delta's error (|delta| < 0.02)
+# plus the rounding of si * v + delta; on u8 frames K1's rule
+DELTA_RTOL, BLEND_ATOL, K4_BLEND_F32_ATOL = 1e-5, 1e-6, 2e-7
 # K8 on the probe's inputs (every bias and norm vector N(0, 1), as on the
 # TPU): GRN's gain |gamma * nx| reaches ~19, so a hidden activation whose
 # bf16 rounding flips (pw1's f32 sums in another order, as for K2) moves the
@@ -164,12 +175,12 @@ def check_counts(path: str, want: dict) -> dict:
     return got
 
 
-def planar_frames(f: int, seed: int, device) -> torch.Tensor:
+def planar_frames(f: int, seed: int, device, h: int = H, w: int = W) -> torch.Tensor:
     from videoseal_tpu_torch.kernels.fused_planar import C0, R0, planar_shape
     g = torch.Generator(device=device).manual_seed(seed)
-    buf = torch.zeros(planar_shape(f, H, W), dtype=torch.uint8, device=device)
-    buf[:, :, R0:R0 + H, C0:C0 + W] = torch.randint(
-        0, 256, (f, 3, H, W), generator=g, device=device, dtype=torch.uint8)
+    buf = torch.zeros(planar_shape(f, h, w), dtype=torch.uint8, device=device)
+    buf[:, :, R0:R0 + h, C0:C0 + w] = torch.randint(
+        0, 256, (f, 3, h, w), generator=g, device=device, dtype=torch.uint8)
     return buf
 
 
@@ -201,18 +212,46 @@ def phase_build() -> dict:
     return {"seconds": secs, "ptxas": ptxas}
 
 
+def k1_cost(f: int, h: int, w: int, s: int, lowres: bool, ds: int) -> tuple[float, float]:
+    """K1's (bytes, f32 operations) for f frames: it reads the (hout, wq)
+    window of each u8 plane that it writes out (the JND's halo rows and
+    columns come back from L2), the f32 prediction, and writes the u8 planes
+    and, with ds, the f32 detect input. Operations: per output pixel the
+    width taps of each lift tap, the lift and the blend of three planes,
+    with the JND HEAT_OPS; with ds, the two banded downscale products."""
+    from videoseal_tpu_torch.kernels.fused_planar import TH, _tables_np, planar_geometry
+    n_tiles, _, _, wq = planar_geometry(h, w)
+    hout = TH * n_tiles
+    tabs = _tables_np(s, h, w, hout, wq, ds)
+    lt, wt = tabs["lift"][2], tabs["width"][2]
+    px = f * hout * wq
+    nbytes = 2 * f * 3 * hout * wq + f * s * s * 4 + (f * 3 * ds * ds * 4 if ds else 0)
+    ops = px * (lt * (2 * wt + 2) + 3 * 4 + (0 if lowres else HEAT_OPS))
+    if ds:
+        ops += f * 3 * hout * ds * 2 * tabs["dw"][2] + f * 3 * ds * ds * 2 * tabs["dh"][2]
+    return nbytes, ops
+
+
 def phase_k1(dev) -> dict:
-    from videoseal_tpu_torch.kernels.fused_planar import (fused_jnd_blend_planar,
+    """K1 against its plain version in both branches, with and without the
+    detect output, at 1080p (F=4) and at 720x1280 (F=2: other lift and width
+    tap tables); timed at F=128 in all four settings, each with its bound,
+    and the detect height pass alone."""
+    from videoseal_tpu_torch.kernels import _lib
+    from videoseal_tpu_torch.kernels.fused_planar import (_tables, fused_jnd_blend_planar,
                                                           fused_jnd_blend_planar_plain)
     rec, worst = {}, 0
-    for f, timed in ((4, False), (F_SLICE, True)):
-        imgs = planar_frames(f, 1, dev)
+    # 128x200: the prediction is downscaled in width (more than 2 taps, the
+    # kernel's general width path) and in height
+    for f, h, w, timed in ((4, H, W, False), (2, 720, 1280, False), (2, 128, 200, False),
+                           (F_SLICE, H, W, True)):
+        imgs = planar_frames(f, 1, dev, h, w)
         g = torch.Generator(device=dev).manual_seed(2)
         pred = (torch.rand((f, 256, 256), generator=g, device=dev) * 2 - 1) * 0.1
         for lowres in (True, False):
             for ds in (None, 256):
-                kern = lambda: fused_jnd_blend_planar(imgs, pred, 0.2, 1.0, H, W, ds, lowres)
-                plain = lambda: fused_jnd_blend_planar_plain(imgs, pred, 0.2, 1.0, H, W, ds,
+                kern = lambda: fused_jnd_blend_planar(imgs, pred, 0.2, 1.0, h, w, ds, lowres)
+                plain = lambda: fused_jnd_blend_planar_plain(imgs, pred, 0.2, 1.0, h, w, ds,
                                                              lowres)
                 key = f"lowres={lowres},ds={ds}"
                 if not timed:
@@ -222,33 +261,56 @@ def phase_k1(dev) -> dict:
                     d = (a.int() - b.int()).abs()
                     u8max, share = int(d.max()), float((d > 0).float().mean())
                     det_err = float((da - db).abs().max()) if ds else 0.0
-                    log(f"[K1] F={f} {key}: u8 max diff {u8max}, share differing "
+                    log(f"[K1] F={f} {h}x{w} {key}: u8 max diff {u8max}, share differing "
                         f"{share:.2e}, det max abs err {det_err:.3e}")
                     if u8max > K1_U8_MAX or share > K1_U8_SHARE or det_err > K1_DET_ATOL:
-                        raise AssertionError(f"K1 disagrees with its plain version at {key}")
+                        raise AssertionError(f"K1 disagrees with its plain version at {h}x{w} "
+                                             f"{key}")
                     worst = max(worst, u8max)
-                    rec[key] = {"u8_max": u8max, "share": share, "det_err": det_err}
+                    rec.setdefault(key, {})[f"{h}x{w}"] = {"u8_max": u8max, "share": share,
+                                                           "det_err": det_err}
                 else:
-                    ms, pms = cuda_ms(kern), cuda_ms(plain)
-                    log(f"[K1] F={f} {key}: kernel {ms:.3f} ms, plain {pms:.3f} ms")
-                    rec[key].update(ms=ms, plain_ms=pms)
+                    ms, pms = cuda_ms(kern, reps=10), cuda_ms(plain)
+                    bound_ms, bound_by = bound(*k1_cost(f, h, w, 256, lowres, ds or 0))
+                    log(f"[K1] F={f} {key}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                        f"{bound_ms:.3f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of it")
+                    rec[key].update(ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by)
                     torch.cuda.empty_cache()
-    # bound of the scored branch at F=128 (pred: the last loop's input). It
-    # reads the (hout, wq) window of each u8 plane that it writes out, with
-    # no halo, the f32 prediction, and writes the f32 detect input.
-    from videoseal_tpu_torch.kernels.fused_planar import TH, _tables_np, planar_geometry
-    n_tiles, _, _, wq = planar_geometry(H, W)
-    hout, f = TH * n_tiles, F_SLICE
-    taps = {k: v[2] for k, v in _tables_np(256, H, W, hout, 256).items()}
-    nbytes = 2 * f * 3 * hout * wq + pred.numel() * 4 + f * 3 * 256 * 256 * 4
-    ops = (f * hout * wq * (2 * taps["lift"] + 15) + f * 3 * hout * 256 * 2 * taps["dw"]
-           + f * 3 * 256 * 256 * 2 * taps["dh"])
+        del imgs, pred
+    # where the detect output's time goes: the height pass alone, on the
+    # vd K1 writes (F, 3, 1152, 256) bf16
+    tabs = _tables(256, H, W, 1152, 1920, 256, dev)
+    dhs, dhw, dht = tabs["dh"]
+    vd = torch.randn((F_SLICE, 3, 1152, 256), device=dev).to(torch.bfloat16)
+    det = torch.empty((F_SLICE, 3, 256, 256), device=dev)
+    lib, stream = _lib.library(), _lib.stream_ptr(vd)
+    height_ms = cuda_ms(lambda: _lib.check(lib.vs_detect_height(
+        vd.data_ptr(), dhs.data_ptr(), dhw.data_ptr(), dht, det.data_ptr(), F_SLICE, 1152, 256,
+        stream), "vs_detect_height"), reps=10)
+    del vd, det
+    torch.cuda.empty_cache()
+    for lowres in (True, False):
+        with_ds = rec[f"lowres={lowres},ds=256"]["ms"]
+        without = rec[f"lowres={lowres},ds=None"]["ms"]
+        log(f"[K1] F={F_SLICE} lowres={lowres}: the detect output adds {with_ds - without:.3f} ms, "
+            f"of which the height pass alone {height_ms:.3f} ms, the in-block width pass and "
+            f"the vd store the rest")
+    # what holds the full-resolution branch back: the same kernel with its
+    # heat cut down to the window alone, then to the stencil sums
+    from videoseal_tpu_torch.kernels.fused_planar import blend_planar_attribution
+    imgs = planar_frames(F_SLICE, 1, dev)
+    pred = (torch.rand((F_SLICE, 256, 256), device=dev) * 2 - 1) * 0.1
+    attribution = {m: cuda_ms(lambda m=m: blend_planar_attribution(imgs, pred, 0.2, 1.0, H, W, m),
+                              reps=10) for m in ("window", "sums", "production")}
+    log(f"[K1] F={F_SLICE} full-resolution branch, no detect output, attribution: " + ", ".join(
+        f"{m} {t:.3f} ms" for m, t in attribution.items()) + " (lowres branch "
+        f"{rec['lowres=True,ds=None']['ms']:.3f} ms)")
+    del imgs, pred
+    torch.cuda.empty_cache()
     scored = rec["lowres=True,ds=256"]
-    bound_ms, bound_by = bound(nbytes, f32_ops=ops)
-    log(f"[K1] scored branch, F={f}: bound {bound_ms:.3f} ms ({bound_by}), kernel at "
-        f"{bound_ms / scored['ms']:.1%} of it")
-    return {"checks": rec, "max_abs_err": worst, "ms": scored["ms"],
-            "plain_ms": scored["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"checks": rec, "max_abs_err": worst, "ms": scored["ms"], "attribution": attribution,
+            "plain_ms": scored["plain_ms"], "bound_ms": scored["bound_ms"],
+            "bound_by": scored["bound_by"], "detect_height_ms": height_ms}
 
 
 def _random_block(c: int, seed: int, dev, dtype):
@@ -417,9 +479,18 @@ def phase_slice(dev, smi: str) -> dict:
         rec[f"{m}_cpu_vs_card"] = {"u8_max": int(d.max()), "logit_max": ld}
 
     if "--profile" in sys.argv:
-        rec["profile"] = profile({
-            m: (lambda kw=kw: model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw))
-            for m, kw in modes.items()})
+        # K1's wrapper launches its kernels only: the prediction's width
+        # resize is inside the kernel
+        from videoseal_tpu_torch.kernels.fused_planar import fused_jnd_blend_planar
+        pred = torch.rand((F_SLICE, 256, 256), device=dev) * 0.2 - 0.1
+        calls = {m: (lambda kw=kw: model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw))
+                 for m, kw in modes.items()}
+        calls["k1_scored"] = lambda: fused_jnd_blend_planar(imgs, pred, 0.2, 1.0, H, W, 256, True)
+        calls["k1_default"] = lambda: fused_jnd_blend_planar(imgs, pred, 0.2, 1.0, H, W)
+        rec["profile"] = profile(calls)
+        for m, want in (("k1_scored", ("blend_planar_kernel", "detect_height_kernel")),
+                        ("k1_default", ("blend_planar_kernel",))):
+            check_launches(f"K1 wrapper, {m[3:]}", rec["profile"][m]["order"], want)
     for m, kw in modes.items():
         ms = cuda_ms(lambda: model.embed_detect_planar(imgs, H, W, msgs=msgs, **kw))
         fps = F_SLICE / ms * 1000
@@ -430,30 +501,37 @@ def phase_slice(dev, smi: str) -> dict:
 
 
 def phase_jnd(dev) -> dict:
-    """K4, K5, K6 against their plain versions at F=4, timed at F=128."""
+    """K4 (delta and blend mode, u8 and f32 frames), K5, K6 against their
+    plain versions at F=4 and at F=2, 1078x1922; timed at F=128."""
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels.fused_planar import _band
     from videoseal_tpu_torch.ops.resize import _resize_matrix, resize_bilinear
     s = 256
     lift_taps = _band(_resize_matrix(s, H))[2]
-    width_taps = _band(_resize_matrix(s, W))[2]
+    width_taps = _band(_resize_matrix(s, W), 2)[2]
 
-    def cases(f: int, seed: int) -> dict:
+    def cases(f: int, seed: int, h: int = H, w: int = W, all_cases: bool = True) -> dict:
         g = torch.Generator(device=dev).manual_seed(seed)
-        u8 = torch.randint(0, 256, (f, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
-        f32 = torch.rand((f, H, W, 3), generator=g, device=dev)
+        u8 = torch.randint(0, 256, (f, h, w, 3), generator=g, device=dev, dtype=torch.uint8)
+        f32 = torch.rand((f, h, w, 3), generator=g, device=dev)
         pred_low = (torch.rand((f, s, s), generator=g, device=dev) * 2 - 1).contiguous()
-        pred = resize_bilinear(pred_low[..., None], H, W)[..., 0].contiguous()
-        p1 = torch.rand((f, H, W, 1), generator=g, device=dev) * 2 - 1
-        p3 = torch.rand((f, H, W, 3), generator=g, device=dev) * 2 - 1
-        px = f * H * W
-        up_ops = px * (HEAT_OPS + 2 * lift_taps + 1) + f * s * W * 2 * width_taps
-        out = {"K4,u8": ("K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain,
-                         (u8, pred_low, 0.2), up_ops),
-               "K4,f32": ("K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain,
-                          (f32, pred_low, 0.2), up_ops),
-               "K5,f32": ("K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain,
-                          (f32, pred, 0.2), px * (HEAT_OPS + 1))}
+        px = f * h * w
+        # per pixel: the width taps of each lift tap, the lift, the heat, the
+        # delta; the blend mode 3 more per value
+        up_ops = px * (HEAT_OPS + lift_taps * (2 * width_taps + 2) + 2)
+        out = {}
+        for name, im in (("u8", u8), ("f32", f32)):
+            out[f"K4,{name}"] = ("K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain,
+                                 (im, pred_low, 0.2), up_ops)
+            out[f"K4b,{name}"] = ("K4", fb.fused_jnd_blend_up, fb.fused_jnd_blend_up_plain,
+                                  (im, pred_low, 0.95, 0.2), up_ops + 3 * px * 4)
+        if not all_cases:
+            return out
+        pred = resize_bilinear(pred_low[..., None], h, w)[..., 0].contiguous()
+        p1 = torch.rand((f, h, w, 1), generator=g, device=dev) * 2 - 1
+        p3 = torch.rand((f, h, w, 3), generator=g, device=dev) * 2 - 1
+        out["K5,f32"] = ("K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain, (f32, pred, 0.2),
+                         px * (HEAT_OPS + 1))
         for name, pr in (("f32,c1", p1), ("f32,c3", p3), ("bf16,c1", p1.to(torch.bfloat16)),
                          ("bf16,c3", p3.to(torch.bfloat16))):
             out[f"K6,{name}"] = ("K6", fb.fused_jnd_blend, fb.fused_jnd_blend_plain,
@@ -465,8 +543,17 @@ def phase_jnd(dev) -> dict:
     def hold(tag: str, key: str, k: str, kern, plain, args) -> float:
         a, b = kern(*args), plain(*args)
         torch.cuda.synchronize()
+        if a.dtype == torch.uint8:   # K4's blend mode on u8 frames
+            d = (a.int() - b.int()).abs()
+            err, share = float(d.max()), float((d > 0).float().mean())
+            log(f"[{k}] {tag} {key}: u8 max diff {int(err)}, share differing {share:.2e}")
+            if err > K1_U8_MAX or share > K1_U8_SHARE:
+                raise AssertionError(f"{key} at {tag} disagrees with its plain version")
+            worst[k] = max(worst[k], err)
+            return err
         err = float((a - b).abs().max())
-        tol = BLEND_ATOL if k == "K6" else DELTA_RTOL * float(b.abs().max())
+        tol = (BLEND_ATOL if k == "K6" else K4_BLEND_F32_ATOL if key.startswith("K4b")
+               else DELTA_RTOL * float(b.abs().max()))
         log(f"[{k}] {tag} {key}: max abs err {err:.3e} (tolerance {tol:.3e}), "
             f"max |plain| {float(b.abs().max()):.4f}")
         if not bool(torch.isfinite(a).all()) or err > tol:
@@ -477,45 +564,43 @@ def phase_jnd(dev) -> dict:
     small = cases(4, 7)
     for key, (k, kern, plain, args, _) in small.items():
         rec[key] = {"max_abs_err": hold("F=4", key, k, kern, plain, args)}
-    # a height that the 8-row strips do not divide and a width that the
-    # 256-column chunks do not divide: the masked edges
+    # a height that the row strips do not divide, and a width whose NHWC rows
+    # are not 16-byte aligned and whose last 16-pixel group is ragged: K4's
+    # masked scalar path; K5 and K6's 8-row strips and 256-column chunks
     hr, wr = H - 2, W + 2
-    g = torch.Generator(device=dev).manual_seed(9)
-    u8r = torch.randint(0, 256, (2, hr, wr, 3), generator=g, device=dev, dtype=torch.uint8)
-    f32r = torch.rand((2, hr, wr, 3), generator=g, device=dev)
-    plr = (torch.rand((2, s, s), generator=g, device=dev) * 2 - 1).contiguous()
-    pr = resize_bilinear(plr[..., None], hr, wr)[..., 0].contiguous()
-    p3r = torch.rand((2, hr, wr, 3), generator=g, device=dev) * 2 - 1
-    for key, k, kern, plain, args in (
-            ("K4,u8", "K4", fb.fused_jnd_delta_up, fb.fused_jnd_delta_up_plain, (u8r, plr, 0.2)),
-            ("K5,f32", "K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain, (f32r, pr, 0.2)),
-            ("K6,f32,c3", "K6", fb.fused_jnd_blend, fb.fused_jnd_blend_plain,
-             (f32r, p3r, 1.0, 0.2))):
-        rec[key]["ragged_max_abs_err"] = hold(f"F=2 {hr}x{wr}", key, k, kern, plain, args)
-    del u8r, f32r, plr, pr, p3r
+    for key, (k, kern, plain, args, _) in cases(2, 9, hr, wr).items():
+        if k == "K4" or key in ("K5,f32", "K6,f32,c3"):
+            rec[key]["ragged_max_abs_err"] = hold(f"F=2 {hr}x{wr}", key, k, kern, plain, args)
+    # 120x200 frames: the prediction downscaled in width, K4's general path
+    for key, (k, kern, plain, args, _) in cases(2, 10, 120, 200, all_cases=False).items():
+        rec[key]["small_max_abs_err"] = hold("F=2 120x200", key, k, kern, plain, args)
+    torch.cuda.empty_cache()
     # K5 on the upsampled prediction is K4 on the low-res one
+    pred_full = small["K5,f32"][3][1]
     for key in ("K4,u8", "K4,f32"):
         imgs, pred_low, sw = small[key][3]
         a = fb.fused_jnd_delta_up(imgs, pred_low, sw)
-        b = fb.fused_jnd_delta(imgs, small["K5,f32"][3][1], sw)
+        b = fb.fused_jnd_delta(imgs, pred_full, sw)
         torch.cuda.synchronize()
         err = float((a - b).abs().max())
         log(f"[K4] F=4 {key} against K5 on the upsampled prediction: max abs err {err:.3e}")
         if err > DELTA_RTOL * float(b.abs().max()):
             raise AssertionError(f"K4 and K5 disagree on {key}")
         rec[key]["vs_K5"] = err
-    del small
+    del small, pred_full
     for key, (k, kern, plain, args, ops) in cases(F_SLICE, 8).items():
-        ms, pms = cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))
+        ms, pms = cuda_ms(lambda: kern(*args), reps=10), cuda_ms(lambda: plain(*args))
         out = kern(*args)
+        # each input read once (frames and pred_low), each output written once
         nbytes = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
         bound_ms, bound_by = bound(nbytes + out.numel() * out.element_size(), f32_ops=ops)
         log(f"[{k}] F={F_SLICE} {key}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of it")
         rec[key].update(ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by)
         del out
-    torch.cuda.empty_cache()
-    main_case = {"K4": "K4,u8", "K5": "K5,f32", "K6": "K6,f32,c3"}
+        torch.cuda.empty_cache()
+    # K4: its main-path instance, the blend mode on u8 frames (NHWC embed)
+    main_case = {"K4": "K4b,u8", "K5": "K5,f32", "K6": "K6,f32,c3"}
     return {k: dict(rec[c], case=c, max_abs_err=worst[k]) for k, c in main_case.items()} | {
         "checks": rec}
 
@@ -590,7 +675,19 @@ def phase_nhwc(dev, smi: str) -> dict:
         return model.detect(model.embed(frames, msgs=msgs, is_video=True)["imgs_w"])
 
     if "--profile" in sys.argv:
-        rec["profile"] = profile({"nhwc": embed_detect})
+        # K4's blend mode launches its kernel only, and embed launches nothing
+        # over the full-resolution frames after it
+        from videoseal_tpu_torch.kernels.fused_blend import fused_jnd_blend_up
+        pred_low = torch.rand((F_SLICE, 256, 256), device=dev) * 2 - 1
+        rec["profile"] = profile({
+            "nhwc": embed_detect,
+            "nhwc_embed_u8": lambda: model.embed(frames, msgs=msgs, is_video=True),
+            "nhwc_embed_f32": lambda: model.embed(imgs),
+            "k4_blend": lambda: fused_jnd_blend_up(frames, pred_low, 1.0, 0.2)})
+        check_launches("K4 wrapper, blend mode", rec["profile"]["k4_blend"]["order"],
+                       ("jnd_up_kernel",))
+        for m in ("nhwc_embed_u8", "nhwc_embed_f32"):
+            check_launches(m, rec["profile"][m]["order"], after="jnd_up_kernel")
     ms = cuda_ms(embed_detect)
     ems = cuda_ms(lambda: model.embed(frames, msgs=msgs, is_video=True))
     fps = F_SLICE / ms * 1000
@@ -870,9 +967,20 @@ def phase_probes(dev) -> dict:
     return out | {"launches": launches, "checks": errs, "sweep_K7": sweep7, "sweep_K8": sweep8}
 
 
+def _is_elementwise(name: str) -> bool:
+    return "elementwise" in name
+
+
+def _is_gemm(name: str) -> bool:
+    n = name.lower()
+    return any(t in n for t in ("gemm", "xmma", "cutlass", "cublas"))
+
+
 def profile(calls: dict) -> dict:
-    """Device time by kernel over one run of each call, and the busy share
-    (summed kernel time over the call's wall time)."""
+    """Device time by kernel over one run of each call, the busy share
+    (summed kernel time over the call's wall time), the torch elementwise
+    kernels' time, the GEMMs' time, the aten::copy_ calls and the kernels in
+    launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -886,20 +994,61 @@ def profile(calls: dict) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        avg = prof.key_averages()
+        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+        order = [_short(e.name) for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
         busy = sum(e.self_device_time_total for e in kern)
+        elem = sum(e.self_device_time_total for e in kern if _is_elementwise(e.key)) / 1e3
+        gemm = sum(e.self_device_time_total for e in kern if _is_gemm(e.key)) / 1e3
+        copies = sum(e.count for e in avg if e.key == "aten::copy_")
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, f"profile_{m}.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+            f.write(avg.table(sort_by="self_cuda_time_total", row_limit=60))
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
         log(f"[profile] {m}: wall {wall_us / 1e3:.2f} ms, kernels {busy / 1e3:.2f} ms, "
-            f"busy share {busy / wall_us:.3f}")
+            f"busy share {busy / wall_us:.3f}; torch elementwise kernels {elem:.3f} ms, "
+            f"GEMMs {gemm:.3f} ms, aten::copy_ calls {copies}")
         for e in top:
             log(f"[profile] {m}:   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
                 f"{e.key[:100]}")
-        rec[m] = {"wall_ms": wall_us / 1e3, "kernel_ms": busy / 1e3,
+        rec[m] = {"wall_ms": wall_us / 1e3, "kernel_ms": busy / 1e3, "elementwise_ms": elem,
+                  "gemm_ms": gemm, "copy_calls": copies, "order": order,
                   "top": [(e.key[:100], e.self_device_time_total / 1e3, e.count) for e in top]}
     return rec
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type, namespace, template and
+    parameter lists."""
+    n = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return n.split("<")[0].split("(")[0].strip()[-60:] or name[:60]
+
+
+def check_launches(tag: str, order: list, want: tuple | None = None,
+                   after: str | None = None) -> list | None:
+    """A profiled call's kernels: exactly the port's `want` kernels (no torch
+    GEMM, pad or elementwise pass around them), or none after the last
+    `after` kernel. A profile that recorded no kernel list is logged as
+    unverified."""
+    if not order:
+        log(f"[profile] {tag}: the profiler recorded no kernel list; not verified")
+        return None
+    if after is not None:
+        last = max((i for i, n in enumerate(order) if after in n), default=None)
+        if last is None:
+            raise AssertionError(f"{tag}: no {after} among its kernels")
+        tail = order[last + 1:]
+        log(f"[profile] {tag}: {len(order)} kernels, {len(tail)} after {after} {tail}")
+        if tail:
+            raise AssertionError(f"{tag} launches {tail} after {after}")
+        return tail
+    log(f"[profile] {tag} launches {order}")
+    if len(order) != len(want) or sorted(
+            next((w for w in want if w in n), n) for n in order) != sorted(want):
+        raise AssertionError(f"{tag} launches {order}, expected {want}")
+    return order
 
 
 def main() -> int:
@@ -928,7 +1077,7 @@ def main() -> int:
         "K1": ("fused_jnd_blend_planar", "fused_planar.cu", "fused_planar.py:315"),
         "K2": ("convnext_block_fused", "convnext_pw.cu", "convnext_block.py:185"),
         "K3": ("convnext_blocks_fused", "convnext_group.cu", "convnext_block.py:259"),
-        "K4": ("fused_jnd_delta_up", "jnd_delta.cu", "fused_blend.py:435"),
+        "K4": ("fused_jnd_delta_up", "jnd_up.cu", "fused_blend.py:435"),
         "K5": ("fused_jnd_delta", "jnd_delta.cu", "fused_blend.py:487"),
         "K6": ("fused_jnd_blend", "jnd_delta.cu", "fused_blend.py:538"),
         "K7": ("jnd_probe", "jnd_probe.cu", "jnd_probe.py:146"),
@@ -941,9 +1090,12 @@ def main() -> int:
          "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
          "bound_by": measured[k]["bound_by"], "library_ms": None}
         for k, (name, src, tpu) in sources.items()]
-    # K2 is four launches from two sources and the GEMM core they share
-    kernels[1]["sources"] = [f"videoseal_tpu_torch/csrc/{f}" for f in
-                             ("convnext_dwln.cu", "convnext_pw.cu", "gemm_tn.cuh")]
+    # K2 is four launches from two sources and the GEMM core they share; K1
+    # and K4 share blend_up.cuh (and the heat with K5-K7)
+    for i, files in ((1, ("convnext_dwln.cu", "convnext_pw.cu", "gemm_tn.cuh")),
+                     (0, ("fused_planar.cu", "blend_up.cuh", "jnd_heat.cuh")),
+                     (3, ("jnd_up.cu", "blend_up.cuh", "jnd_heat.cuh"))):
+        kernels[i]["sources"] = [f"videoseal_tpu_torch/csrc/{f}" for f in files]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

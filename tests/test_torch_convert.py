@@ -10,7 +10,7 @@ import pytest
 import torch
 import yaml
 
-from torch_port import tiny_card
+from torch_port import LOGIT_ATOL, jax_model, port_model, tiny_card
 
 from videoseal_tpu.utils.torch_convert import convert_model
 from videoseal_tpu_torch import VideoSeal, load_card
@@ -48,6 +48,35 @@ class TestWeightBridge:
         torch.save({"model": {f"module.{k}": v for k, v in a.state_dict().items()}}, path)
         b = VideoSeal.from_card(copy.deepcopy(card), checkpoint=path, device="cpu",
                                 seed=6)
+        for k, v in a.state_dict().items():
+            assert torch.equal(b.state_dict()[k], v), k
+
+    def test_jax_npz_checkpoint_load(self, tmp_path):
+        """Random JAX variables written by the JAX package's save_npz load
+        through from_card(checkpoint=....npz) and give the JAX model's logits
+        on the same frames, within LOGIT_ATOL (torch_port: K2 rounds to bf16
+        inside, the JAX extractor on the CPU is all f32)."""
+        from videoseal_tpu.utils.checkpoint import save_npz
+        card = tiny_card(img_size=64)
+        jm = jax_model(card, seed=7)
+        path = str(tmp_path / "ckpt.npz")
+        save_npz(path, jm.embedder_vars, jm.extractor_vars, args=card["args"])
+        got = VideoSeal.from_card(copy.deepcopy(card), checkpoint=path, device="cpu", seed=8)
+        want = port_model(card, jm)
+        for k, v in want.state_dict().items():
+            assert torch.equal(got.state_dict()[k], v), k
+        frames = np.random.default_rng(9).uniform(0, 1, (2, 64, 96, 3)).astype(np.float32)
+        logits = got.detect(torch.from_numpy(frames))["preds"].numpy()
+        np.testing.assert_allclose(logits, np.asarray(jm.detect(frames)["preds"]),
+                                   atol=LOGIT_ATOL)
+
+    def test_url_checkpoint_is_skipped(self):
+        """An http(s) checkpoint is skipped, as in the JAX package: the model
+        keeps its random init from the seed and nothing is fetched."""
+        card = tiny_card()
+        a = VideoSeal.from_card(copy.deepcopy(card), device="cpu", seed=2)
+        b = VideoSeal.from_card(copy.deepcopy(card), checkpoint="https://example.invalid/x.pth",
+                                device="cpu", seed=2)
         for k, v in a.state_dict().items():
             assert torch.equal(b.state_dict()[k], v), k
 

@@ -24,7 +24,7 @@ from videoseal_tpu.modules.pixel_decoder import PixelDecoder as LinenPixelDecode
 from videoseal_tpu_torch.kernels.convnext_block import (block_params, block_plain_padded,
                                                         convnext_block_plain,
                                                         convnext_blocks_fused,
-                                                        convnext_blocks_plain)
+                                                        convnext_blocks_plain, k3_takes)
 from videoseal_tpu_torch.kernels.convnext_fused import block_groups, convnext_apply_fused
 from videoseal_tpu_torch.models.extractor import build_extractor
 from videoseal_tpu_torch.modules.convnext import ConvNeXtBlock
@@ -44,6 +44,10 @@ BLOCKS_TOL = {2: 4e-2, 3: 6e-2}
 # [2, 1] x 4: the per-block gap above through 8 or 12 blocks and the pixel
 # decoder's mean pool and Linear, on logits of magnitude ~1
 ROUTE_LOGIT_ATOL = 5e-2
+# the grouped route against the single one on an f32 forward: the bf16
+# rounding K3 makes between a group's blocks, carried through the later
+# stages (measured 7.9e-3 on outputs up to 2.7)
+ROUTE_F32_ATOL = 3e-2
 # The same blocks with the kernel's tanh GELU, f32 input: only f32 sums in
 # another order remain (measured mean 5e-7 at k = 2, 5e-6 at k = 3; max
 # 1e-3, 4e-3). Without the bf16 rounding between blocks the mean is 2.5e-3
@@ -207,3 +211,53 @@ def test_block_groups_match_jax_where_vmem_fits(depth):
 def test_block_groups_rejects_zero():
     with pytest.raises(ValueError):
         block_groups(3, 0)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 1536), (16, 16, 784), (12, 12, 1600), (8, 8, 200),
+                                   (5, 5, 96)])
+def test_block_groups_single_where_k3_cannot_go(shape):
+    """A stage K3 does not take (C > 768, or 1536 where H*W % 32 != 0;
+    C % 16 != 0; H*W % 16 != 0) runs in groups of one, K2 launches, as the
+    JAX route sizes such a stage's groups down to single blocks."""
+    assert not k3_takes(*shape)
+    for depth in (1, 3, 9):
+        assert block_groups(depth, 4, shape) == [1] * depth
+
+
+def test_block_groups_unchanged_where_k3_goes():
+    """videoseal_1.0's four stages at 256 px, and a C = 1536 stage where
+    H*W % 32 != 0 (16-pixel tiles), keep the grouping K3 takes."""
+    for (h, w, c), d in zip(((64, 64, 96), (32, 32, 192), (16, 16, 384), (8, 8, 768)),
+                            (3, 3, 9, 3)):
+        assert block_groups(d, 4, (h, w, c)) == block_groups(d, 4)
+    assert k3_takes(4, 4, 1536) and block_groups(3, 4, (4, 4, 1536)) == [2, 1]
+
+
+def test_grouped_route_sends_big_stages_to_k2(monkeypatch):
+    """convnext_apply_fused(max_block_group=4) on an encoder whose last
+    stage is 8x8x1024: that stage's blocks go one by one to K2's wrapper,
+    the first stage's pair to K3's, and the result is the single route's
+    up to the bf16 rounding K3 makes between the blocks of a group."""
+    from videoseal_tpu_torch.kernels import convnext_fused as cf
+    from videoseal_tpu_torch.models.videoseal import init_weights
+    from videoseal_tpu_torch.modules.convnext import ConvNeXtV2
+    enc = ConvNeXtV2(depths=(2, 1, 1, 2), dims=(16, 32, 64, 1024)).eval()
+    init_weights(enc, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(9).uniform(-1, 1, (1, 256, 256, 3))
+                         .astype(np.float32))
+    calls = []
+    k2, k3 = cf.convnext_block_fused, cf.convnext_blocks_fused
+    monkeypatch.setattr(cf, "convnext_block_fused",
+                        lambda y, p: calls.append(("K2", y.shape[-1])) or k2(y, p))
+    monkeypatch.setattr(cf, "convnext_blocks_fused",
+                        lambda y, ps: calls.append(("K3", y.shape[-1])) or k3(y, ps))
+    with torch.no_grad():
+        got = convnext_apply_fused(enc, x, max_block_group=4)
+        grouped_calls, calls[:] = list(calls), []
+        want = convnext_apply_fused(enc, x, max_block_group=1)
+    assert grouped_calls == [("K3", 16), ("K2", 32), ("K2", 64), ("K2", 1024), ("K2", 1024)]
+    assert tuple(got.shape) == (1, 8, 8, 1024)
+    # K3's plain version rounds the first block's output to bf16 (2^-9
+    # relative) before the second; the later stages carry that through LN
+    # and the products as a relative error of the same order
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ROUTE_F32_ATOL)

@@ -79,6 +79,52 @@ def test_blend_matches_pallas(pred_c, pred_dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=BLEND_ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_blend_up_matches_jax(dtype):
+    """K4's blend mode against the JAX package's result for a 1-channel
+    prediction: the Pallas delta (interpret mode), then its one fused XLA
+    pass (videoseal_tpu/models/videoseal.py:225-232). f32 frames within
+    BLEND_ATOL; u8 frames within 1 LSB on fewer than 1e-3 of the values (the
+    delta's ~1e-5 relative error can flip a value that lands on .5)."""
+    rng = np.random.default_rng(8)
+    imgs = _frames(rng, dtype)
+    pred_low = rng.uniform(-1, 1, (F, S, S)).astype(np.float32)
+    si = 0.95
+    ji = jnp.asarray(imgs)
+    delta = jfb.fused_jnd_delta_up(ji, jnp.asarray(pred_low), SW, interpret=True)
+    if dtype == "uint8":
+        out = si * ji.astype(jnp.float32) + 255.0 * delta[..., None]
+        want = np.asarray(jnp.clip(jnp.round(out), 0.0, 255.0).astype(jnp.uint8))
+    else:
+        want = np.asarray(jnp.clip(si * ji + delta[..., None], 0.0, 1.0))
+    before = tfb.fused_jnd_delta_up.launches
+    got = tfb.fused_jnd_blend_up(torch.from_numpy(imgs), torch.from_numpy(pred_low), si, SW)
+    assert tfb.fused_jnd_delta_up.launches == before   # the CPU runs the plain version
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == want.shape
+    if dtype == "uint8":
+        d = np.abs(got.numpy().astype(np.int16) - want.astype(np.int16))
+        assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=BLEND_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_blend_up_is_delta_then_blend(dtype):
+    """The blend mode's plain version is the delta's followed by the torch
+    lines the NHWC embed ran after it, at an untileable height."""
+    rng = np.random.default_rng(10)
+    imgs = torch.from_numpy(_frames(rng, dtype, h=122))
+    pred_low = torch.from_numpy(rng.uniform(-1, 1, (F, S, S)).astype(np.float32))
+    delta = tfb.fused_jnd_delta_up(imgs, pred_low, SW)
+    if dtype == "uint8":
+        out = imgs.float().mul_(SI)
+        out += 255.0 * delta[..., None]
+        want = out.round_().clamp_(0.0, 255.0).to(torch.uint8)
+    else:
+        want = torch.clamp(SI * imgs + delta[..., None], 0.0, 1.0)
+    assert torch.equal(tfb.fused_jnd_blend_up(imgs, pred_low, SI, SW), want)
+
+
 def test_delta_up_against_delta():
     """K4(pred_low) == K5(resize(pred_low)), the JAX package's own check
     (tests/test_fused_blend.py::TestFusedDeltaUp) on the port's plain versions."""

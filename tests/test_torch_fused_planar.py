@@ -60,17 +60,43 @@ def test_rejects_wrong_buffer(inputs):
                                    torch.from_numpy(pred), 0.2, 1.0, H, W)
 
 
-def test_band_tables_reproduce_dense_matrices():
-    """The kernel's banded (start, weights) tables equal the dense resize
-    matrices they stand for, at the main path's 1080p shapes."""
+@pytest.mark.parametrize("h,w", [(1080, 1920), (720, 1280)])
+def test_band_tables_reproduce_dense_matrices(h, w):
+    """The kernels' banded (start, weights) tables equal the dense resize
+    matrices they stand for, at the main path's 1080p shapes and at 720p:
+    K1's lift and width bands zero-padded to (hout, wq), K4's (no padding),
+    and the detect downscale's."""
     from videoseal_tpu_torch.ops.resize import _resize_matrix
-    tabs = tfp._tables_np(256, 1080, 1920, 1152, 256)
-    dense = {"lift": np.zeros((1152, 256), np.float32),
-             "dw": _resize_matrix(1920, 256), "dh": _resize_matrix(1080, 256) / 255.0}
-    dense["lift"][:1080] = _resize_matrix(256, 1080)
-    for name, m in dense.items():
-        start, wt, taps = tabs[name]
-        back = np.zeros_like(m)
-        for i in range(m.shape[0]):
-            back[i, start[i]:start[i] + taps] = wt[i]
-        assert np.array_equal(back, m), name
+    n_tiles, _, _, wq = tfp.planar_geometry(h, w)
+    hout = tfp.TH * n_tiles
+    for pad_h, pad_w, ds in ((hout, wq, 256), (h, w, 0)):
+        tabs = tfp._tables_np(256, h, w, pad_h, pad_w, ds)
+        dense = {"lift": np.zeros((pad_h, 256), np.float32),
+                 "width": np.zeros((pad_w, 256), np.float32)}
+        dense["lift"][:h] = _resize_matrix(256, h)
+        dense["width"][:w] = _resize_matrix(256, w)
+        if ds:
+            dense["dw"] = _resize_matrix(w, ds)
+            dense["dh"] = _resize_matrix(h, ds) / 255.0
+        assert set(tabs) == set(dense)
+        assert tabs["width"][2] == tfp.WIDTH_TAPS   # the kernels' register taps
+        for name, m in dense.items():
+            start, wt, taps = tabs[name]
+            back = np.zeros_like(m)
+            for i in range(m.shape[0]):
+                back[i, start[i]:start[i] + taps] = wt[i]
+            assert np.array_equal(back, m), name
+
+
+@pytest.mark.parametrize("s,h", [(256, 1080), (256, 720), (64, 160), (256, 100)])
+def test_window_rows_cover_each_strip(s, h):
+    """_window_rows is the most low-res rows any strip of RS output rows
+    lifts from: every valid output row's taps lie in its strip's window."""
+    hout = -(-h // 96) * 96
+    start, wt, taps = tfp._tables_np(s, h, h, hout, h, 0)["lift"]
+    nl = tfp._window_rows(s, h, hout)
+    for y0 in range(0, h, tfp.RS):
+        rows = range(y0, min(y0 + tfp.RS, h))
+        lo = start[y0]
+        assert all(start[y] >= lo and start[y] + taps <= lo + nl for y in rows)
+    assert nl <= s

@@ -1,5 +1,5 @@
-// The strip kernel of K4, K5, K6 (jnd_delta.cu) and of the K7 probe
-// (jnd_probe.cu), and its launcher.
+// The strip kernel of K5, K6 (jnd_delta.cu) and of the K7 probe
+// (jnd_probe.cu), and its launcher. K4 runs its own design (jnd_up.cu).
 //
 // Design (simple and right first):
 //  * One block per (frame, strip of RS rows); the block sweeps the strip in
@@ -10,14 +10,11 @@
 //    outside the image give the JND its zero border; the ragged edges of any
 //    H and W are masked here, with no padding of the frame.
 //  * The heat is jnd_heat() of jnd_heat.cuh.
-//  * K4's height lift: each output row has at most lift_taps nonzero taps of
-//    _resize_matrix(s, H); the host passes per-row (start, weights) tables
-//    (as K1 does) instead of the TPU's 8-aligned row bands.
 //  * The epilogues use __fmul_rn/__fadd_rn where a contraction into an FMA
 //    would round otherwise than the plain version.
 //  * Template parameters beyond the three kernels' epilogue (MODE) and input
 //    types: the strip height R and the heat mode HM (jnd_heat.cuh), which
-//    the K7 probe sweeps. K4, K5 and K6 are the instances R = RS = 8,
+//    the K7 probe sweeps. K5 and K6 are the instances R = RS = 8,
 //    HM = kHeatNoSqrt.
 
 #pragma once
@@ -30,11 +27,11 @@
 
 namespace {
 
-constexpr int RS = 8;       // output rows per block of K4, K5, K6
+constexpr int RS = 8;       // output rows per block of K5, K6
 constexpr int BT = 256;     // threads per block = columns per chunk
 constexpr int LW = BT + 4;  // staged luminance width (2-column halo each side)
 
-enum Mode { kDeltaUp = 0, kDelta = 1, kBlend = 2 };
+enum Mode { kDelta = 1, kBlend = 2 };
 
 __device__ __forceinline__ float to_f(uint8_t v) { return (float)v; }
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -44,10 +41,8 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 // [0, 1] floats, 0.299 etc. for u8), so the luminance is in 0..255.
 template <int MODE, typename TIn, typename TPred, int PC, int R = RS, int HM = kHeatNoSqrt>
 __global__ void __launch_bounds__(BT)
-jnd_kernel(const TIn* __restrict__ img, const float* __restrict__ tmp,
-           const int* __restrict__ lift_start, const float* __restrict__ lift_w,
-           int lift_taps, const TPred* __restrict__ pred, float* __restrict__ out, int H,
-           int W, int s, float c0, float c1, float c2, float si, float sw) {
+jnd_kernel(const TIn* __restrict__ img, const TPred* __restrict__ pred, float* __restrict__ out,
+           int H, int W, float c0, float c1, float c2, float si, float sw) {
   static_assert(HM != kHeatCopy || MODE == kDelta, "copy is a probe of K5 only");
   __shared__ float lum[(R + 4) * LW];
 
@@ -86,15 +81,7 @@ jnd_kernel(const TIn* __restrict__ img, const float* __restrict__ tmp,
         continue;
       }
       const float swh = __fmul_rn(sw, jnd_heat<HM>(L, LW));
-      if constexpr (MODE == kDeltaUp) {
-        const int st = lift_start[y];
-        const float* lw = lift_w + (size_t)y * lift_taps;
-        const float* tp = tmp + ((size_t)f * s + st) * W + x;
-        float p = 0.f;
-        for (int t = 0; t < lift_taps; ++t)
-          p = __fadd_rn(p, __fmul_rn(lw[t], tp[(size_t)t * W]));
-        out[o] = __fmul_rn(swh, p);
-      } else if constexpr (MODE == kDelta) {
+      if constexpr (MODE == kDelta) {
         out[o] = __fmul_rn(swh, to_f(pred[o]));
       } else {
         for (int c = 0; c < 3; ++c) {
@@ -109,13 +96,11 @@ jnd_kernel(const TIn* __restrict__ img, const float* __restrict__ tmp,
 }
 
 template <int MODE, typename TIn, typename TPred, int PC, int R = RS, int HM = kHeatNoSqrt>
-int launch(const void* img, const void* tmp, const void* lift_start, const void* lift_w,
-           int lift_taps, const void* pred, void* out, int F, int H, int W, int s, float c0,
+int launch(const void* img, const void* pred, void* out, int F, int H, int W, float c0,
            float c1, float c2, float si, float sw, void* stream) {
   dim3 grid((H + R - 1) / R, F);
   jnd_kernel<MODE, TIn, TPred, PC, R, HM><<<grid, BT, 0, (cudaStream_t)stream>>>(
-      (const TIn*)img, (const float*)tmp, (const int*)lift_start, (const float*)lift_w,
-      lift_taps, (const TPred*)pred, (float*)out, H, W, s, c0, c1, c2, si, sw);
+      (const TIn*)img, (const TPred*)pred, (float*)out, H, W, c0, c1, c2, si, sw);
   return (int)cudaGetLastError();
 }
 

@@ -16,11 +16,10 @@ template <int R, int HM>
 int probe(const void* img, int img_u8, const void* pred, void* out, int F, int H, int W,
           float c0, float c1, float c2, float sw, void* stream) {
   if (img_u8)
-    return launch<kDelta, uint8_t, float, 1, R, HM>(img, nullptr, nullptr, nullptr, 0, pred,
-                                                    out, F, H, W, 0, c0, c1, c2, 0.f, sw,
-                                                    stream);
-  return launch<kDelta, float, float, 1, R, HM>(img, nullptr, nullptr, nullptr, 0, pred, out,
-                                                F, H, W, 0, c0, c1, c2, 0.f, sw, stream);
+    return launch<kDelta, uint8_t, float, 1, R, HM>(img, pred, out, F, H, W, c0, c1, c2, 0.f,
+                                                    sw, stream);
+  return launch<kDelta, float, float, 1, R, HM>(img, pred, out, F, H, W, c0, c1, c2, 0.f, sw,
+                                                stream);
 }
 
 template <int HM>

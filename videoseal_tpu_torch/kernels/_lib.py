@@ -27,8 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "vs_blend_planar": [P, P, P, P, I, P, P, P, P, I] + [I] * 8 + [F, F, P],
+    "vs_blend_planar": [P, P, P, P, I, P, P, I, P, P, P, P, I] + [I] * 11 + [F, F, P],
     "vs_detect_height": [P, P, P, I, P, I, I, I, P],
+    "vs_blend_planar_attr": [P, P, P, P, I, P, P, I, P] + [I] * 9 + [F, F, I, P],
     "vs_cnx_dwln_f32": [P] * 6 + [I] * 4 + [P],
     "vs_cnx_dwln_bf16": [P] * 6 + [I] * 4 + [P],
     "vs_cnx_pw1": [P] * 5 + [I] * 4 + [P],
@@ -42,7 +43,7 @@ SIGNATURES = {
     "vs_cnx_group_f32": [P] * 7 + [I] * 6 + [P],
     "vs_cnx_group_bf16": [P] * 7 + [I] * 6 + [P],
     "vs_cnx_probe": [P] * 14 + [I] * 6 + [P],
-    "vs_jnd_delta_up": [P, I, P, P, P, I, P] + [I] * 4 + [F] * 4 + [P],
+    "vs_jnd_up": [P, I, P, P, P, I, P, P, I, P, I] + [I] * 6 + [F] * 5 + [P],
     "vs_jnd_delta": [P, I, P, P] + [I] * 3 + [F] * 4 + [P],
     "vs_jnd_blend": [P, P, I, I, P] + [I] * 3 + [F] * 5 + [P],
     "vs_jnd_probe": [P, I, P, P] + [I] * 3 + [F] * 4 + [I, I, P],

@@ -194,11 +194,18 @@ def convnext_blocks_plain(x: torch.Tensor, params_list) -> torch.Tensor:
     return convnext_block_plain(y.to(x.dtype), params_list[-1])
 
 
-def _kernel_tile(h: int, w: int, c: int) -> int:
-    """Pixels per block: 32 where the frame allows, else 16."""
+def k3_takes(h: int, w: int, c: int) -> bool:
+    """Whether K3 (and the split kernels it runs) takes frames of h x w x c:
+    C % 16 == 0, H*W % 16 == 0 and C <= 768 (1536 where H*W % 32 != 0)."""
     hw = h * w
     p = 32 if hw % 32 == 0 else 16
-    if c % 16 or hw % 16 or (p // 16) * (c // 16) > 96:
+    return not (c % 16 or hw % 16 or (p // 16) * (c // 16) > 96)
+
+
+def _kernel_tile(h: int, w: int, c: int) -> int:
+    """Pixels per block: 32 where the frame allows, else 16."""
+    p = 32 if (h * w) % 32 == 0 else 16
+    if not k3_takes(h, w, c):
         raise ValueError(f"convnext_block_fused kernel takes C % 16 == 0, "
                          f"H*W % 16 == 0 and C <= 768, got H={h} W={w} C={c}")
     return p

@@ -10,20 +10,24 @@ from __future__ import annotations
 
 import torch
 
-from .convnext_block import convnext_block_fused, convnext_blocks_fused, kernel_params
+from .convnext_block import convnext_block_fused, convnext_blocks_fused, k3_takes, kernel_params
 
 
-def block_groups(depth: int, max_block_group: int = 1) -> list[int]:
+def block_groups(depth: int, max_block_group: int = 1, shape: tuple | None = None) -> list[int]:
     """The sizes of the block groups of a stage of `depth` blocks: the JAX
     package's grouping without its VMEM test. kmax is the largest power of
     two <= min(4, depth), capped at max_block_group; each group takes
-    min(kmax, blocks left)."""
+    min(kmax, blocks left). A stage whose (H, W, C) `shape` K3 does not take
+    runs in groups of one (K2 launches), as the JAX package sizes each stage's
+    groups by what its kernel takes, down to single blocks."""
     if max_block_group < 1:
         raise ValueError(f"max_block_group must be >= 1, got {max_block_group}")
     kmax = 1
     while kmax * 2 <= min(4, depth):
         kmax *= 2
     kmax = min(kmax, max_block_group)
+    if shape is not None and not k3_takes(*shape):
+        kmax = 1
     groups = []
     while sum(groups) < depth:
         groups.append(min(kmax, depth - sum(groups)))
@@ -43,7 +47,7 @@ def convnext_apply_fused(encoder, x: torch.Tensor, max_block_group: int = 1) -> 
             norm, conv = encoder.downsample_layers[i]
             x = conv(norm(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
         j = 0
-        for k in block_groups(len(stage), max_block_group):
+        for k in block_groups(len(stage), max_block_group, tuple(x.shape[1:])):
             if k == 1:
                 x = convnext_block_fused(x, kernel_params(stage[j]))
             else:

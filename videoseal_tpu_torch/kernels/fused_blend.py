@@ -1,19 +1,24 @@
 """K4, K5, K6: full-resolution JND on NHWC frames.
 
 Counterpart of ``videoseal_tpu/kernels/fused_blend.py``. The CUDA kernels
-(``csrc/jnd_delta.cu`` and ``.cuh``, heat in ``csrc/jnd_heat.cuh``) say what bounds
-them on the H100 and how they are laid out. This module holds the plain
-PyTorch versions, which follow the kernels' formulation (cm2^1.2 as
+(K4: ``csrc/jnd_up.cu`` on ``csrc/blend_up.cuh``, shared with K1; K5, K6:
+``csrc/jnd_delta.cu`` and ``.cuh``; the heat in ``csrc/jnd_heat.cuh``) say
+what bounds them on the H100 and how they are laid out. This module holds
+the plain PyTorch versions, which follow the kernels' formulation (cm2^1.2 as
 exp(log(cm2) * 1.2), the luminance weights on the input's scale), and the
 wrappers, which take the plain version for a CPU tensor and launch the kernel
 for a CUDA tensor, or raise.
 
   K4 fused_jnd_delta_up(imgs, pred_low, sw) -> sw * heat * upsample(pred_low)
+     fused_jnd_blend_up(imgs, pred_low, si, sw): K4's blend mode, the frame
+        itself: u8 clip(round(si * v + 255 * delta), 0, 255), f32
+        clip(si * v + delta, 0, 1)
   K5 fused_jnd_delta(imgs, pred, sw)         -> sw * heat * pred
   K6 fused_jnd_blend(imgs, preds, si, sw)    -> clip(si * imgs + sw * heat * preds, 0, 1)
 
-The NHWC embed runs K4 and K6. K5 is K4 without the height lift, for a
-full-resolution prediction that the caller holds; no pipeline path calls it.
+The NHWC embed runs K4's blend mode and K6. K5 is K4 without the height
+lift, for a full-resolution prediction that the caller holds; no pipeline
+path calls it.
 
 The kernels take any H and W. The TPU's tile pickers and VMEM budget are not
 carried over; ``supports_fused_blend`` keeps the math conditions only.
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 from ..modules.jnd import JND
 from ..ops.resize import _resize_matrix
 from . import _lib
-from .fused_planar import _tables
+from .fused_planar import RS, _tables, _width_resized, _window_ld, _window_rows
 
 _RGB_W = (0.299, 0.587, 0.114)
 
@@ -99,19 +104,24 @@ def _heat_plain(imgs: torch.Tensor, mode: str = "full_nosqrt") -> torch.Tensor:
     return torch.clamp(la + cm - 0.3 * torch.minimum(la, cm), min=0.0) * (1.0 / 255.0)
 
 
-def _width_resized(pred_low: torch.Tensor, w: int) -> torch.Tensor:
-    """tmp = pred_low @ mw^T: (F, sh, sw) -> (F, sh, W) f32, the width resize
-    that stays a torch matmul outside K4 (the JAX package leaves it to XLA)."""
-    mw = torch.as_tensor(_resize_matrix(pred_low.shape[-1], w, True), device=pred_low.device)
-    return (pred_low.float() @ mw.t()).contiguous()
-
-
 def fused_jnd_delta_up_plain(imgs: torch.Tensor, pred_low: torch.Tensor,
                              scaling_w) -> torch.Tensor:
     _, h, w, _ = imgs.shape
     lift = torch.as_tensor(_resize_matrix(pred_low.shape[-2], h, True), device=imgs.device)
-    pred = lift @ _width_resized(pred_low, w)
+    pred = lift @ _width_resized(pred_low, w, w)
     return (float(scaling_w) * _heat_plain(imgs)) * pred
+
+
+def fused_jnd_blend_up_plain(imgs: torch.Tensor, pred_low: torch.Tensor, scaling_i,
+                             scaling_w) -> torch.Tensor:
+    """K4's blend mode: the delta's plain version, then the blend the NHWC
+    embed ran after it in torch."""
+    delta = fused_jnd_delta_up_plain(imgs, pred_low, scaling_w)
+    if imgs.is_floating_point():
+        return torch.clamp(scaling_i * imgs + delta[..., None], 0.0, 1.0)
+    out = imgs.float().mul_(scaling_i)
+    out += 255.0 * delta[..., None]
+    return out.round_().clamp_(0.0, 255.0).to(torch.uint8)
 
 
 def fused_jnd_delta_plain(imgs: torch.Tensor, pred: torch.Tensor, scaling_w) -> torch.Tensor:
@@ -149,20 +159,38 @@ def _check_plane(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> No
         raise ValueError(f"{name}: all tensors must be on {device}, got {t.device}")
 
 
-def _delta_up_cuda(imgs, pred_low, scaling_w):
+def _up_cuda(imgs, pred_low, scaling_i, scaling_w, blend: bool):
+    """K4 (blend=False: the delta; True: the blended frames)."""
     f, h, w = _check_frames("fused_jnd_delta_up", imgs, (torch.uint8, torch.float32))
-    if pred_low.dim() != 3 or pred_low.shape[0] != f or pred_low.device != imgs.device:
+    s = pred_low.shape[-1]
+    if pred_low.shape != (f, s, s) or pred_low.device != imgs.device:
         raise ValueError(f"fused_jnd_delta_up: pred_low must be (F, s, s) on {imgs.device}, "
                          f"got {tuple(pred_low.shape)} on {pred_low.device}")
-    s = pred_low.shape[-2]
-    tmp = _width_resized(pred_low, w)
-    start, wt, taps = _tables(s, h, w, h, 0, imgs.device)["lift"]   # K1's lift tables
-    out = torch.empty((f, h, w), dtype=torch.float32, device=imgs.device)
-    _lib.check(_lib.library().vs_jnd_delta_up(
-        imgs.data_ptr(), int(imgs.dtype == torch.uint8), tmp.data_ptr(), start.data_ptr(),
-        wt.data_ptr(), taps, out.data_ptr(), f, h, w, s, *_lum_weights(imgs),
-        float(scaling_w), _lib.stream_ptr(imgs)), "vs_jnd_delta_up")
+    pred_low = pred_low.float().contiguous()
+    tabs = _tables(s, h, w, h, w, 0, imgs.device)   # K1's lift and width bands
+    (ls, lw, lt), (ws, ww, wt) = tabs["lift"], tabs["width"]
+    nl = _window_rows(s, h, h)
+    nt = min(256, -(-w // 16))
+    smem = 4 * (-(-nl * s // 4) * 4 + 5 * _window_ld(nt))
+    if smem > 232448 or -(-h // RS) > 65535:
+        raise ValueError(f"fused_jnd_delta_up kernel: {smem} bytes of shared memory or "
+                         f"{-(-h // RS)} strips for s={s}, {h}x{w}")
+    out = (torch.empty_like(imgs) if blend
+           else torch.empty((f, h, w), dtype=torch.float32, device=imgs.device))
+    _lib.check(_lib.library().vs_jnd_up(
+        imgs.data_ptr(), int(imgs.dtype == torch.uint8), pred_low.data_ptr(), ls.data_ptr(),
+        lw.data_ptr(), lt, ws.data_ptr(), ww.data_ptr(), wt, out.data_ptr(), int(blend), f, h, w,
+        s, RS, nl, *_lum_weights(imgs), float(scaling_i), float(scaling_w),
+        _lib.stream_ptr(imgs)), "vs_jnd_up")
     return out
+
+
+def _delta_up_cuda(imgs, pred_low, scaling_w):
+    return _up_cuda(imgs, pred_low, 0.0, scaling_w, blend=False)
+
+
+def _blend_up_cuda(imgs, pred_low, scaling_i, scaling_w):
+    return _up_cuda(imgs, pred_low, scaling_i, scaling_w, blend=True)
 
 
 def _delta_cuda(imgs, pred, scaling_w):
@@ -197,6 +225,8 @@ def _blend_cuda(imgs, preds, scaling_i, scaling_w):
 # ---------------------------------------------------------------------------
 
 def _dispatch(fn, plain, cuda, imgs, *args):
+    """plain on a CPU tensor; on a CUDA tensor the kernel, one more launch
+    on fn's count."""
     if imgs.device.type == "cpu":
         return plain(imgs, *args)
     if imgs.device.type != "cuda":
@@ -213,6 +243,17 @@ def fused_jnd_delta_up(imgs: torch.Tensor, pred_low: torch.Tensor, scaling_w) ->
     full-resolution prediction ever being materialised."""
     return _dispatch(fused_jnd_delta_up, fused_jnd_delta_up_plain, _delta_up_cuda, imgs,
                      pred_low, scaling_w)
+
+
+def fused_jnd_blend_up(imgs: torch.Tensor, pred_low: torch.Tensor, scaling_i,
+                       scaling_w) -> torch.Tensor:
+    """K4's blend mode. imgs (F, H, W, 3) u8 or [0, 1] f32; pred_low (F, s, s)
+    f32. Returns the watermarked frames in imgs' dtype: u8
+    clip(round(si * v + 255 * delta), 0, 255), f32 clip(si * v + delta, 0, 1),
+    with delta = fused_jnd_delta_up(imgs, pred_low, scaling_w), in one pass
+    over the frames. A launch counts on fused_jnd_delta_up.launches."""
+    return _dispatch(fused_jnd_delta_up, fused_jnd_blend_up_plain, _blend_up_cuda, imgs,
+                     pred_low, scaling_i, scaling_w)
 
 
 def fused_jnd_delta(imgs: torch.Tensor, pred: torch.Tensor, scaling_w) -> torch.Tensor:

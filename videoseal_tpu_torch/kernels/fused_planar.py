@@ -91,38 +91,73 @@ def resize_planar(imgs_p: torch.Tensor, h: int, w: int, out_h: int, out_w: int,
 # banded tables for the kernel's products
 # ---------------------------------------------------------------------------
 
-def _band(m: np.ndarray):
+# output rows per block of K1 and K4 (csrc/blend_up.cuh)
+RS = 32
+# width taps the kernels keep in registers; a band that is narrower is padded
+# with zero weights, a wider one takes the kernels' general path
+WIDTH_TAPS = 2
+
+
+def _band(m: np.ndarray, min_taps: int = 1):
     """Row-banded form of a (n, k) matrix: per-row start column and the
-    `taps` weights from there (taps = widest nonzero span; starts clamped so
-    start + taps <= k, with the weights outside a row's span zero)."""
+    `taps` weights from there (taps = widest nonzero span, at least
+    min_taps; starts clamped so start + taps <= k, with the weights outside
+    a row's span zero)."""
     n, k = m.shape
     nz = m != 0
     any_nz = nz.any(axis=1)
     first = np.where(any_nz, nz.argmax(axis=1), 0)
     last = np.where(any_nz, k - 1 - nz[:, ::-1].argmax(axis=1), 0)
-    taps = int(max((last - first + 1)[any_nz].max(initial=1), 1))
+    taps = int(max((last - first + 1)[any_nz].max(initial=1), min_taps, 1))
     start = np.minimum(first, k - taps).astype(np.int32)
     idx = start[:, None] + np.arange(taps)[None, :]
     return start, m[np.arange(n)[:, None], idx].astype(np.float32), taps
 
 
 @functools.lru_cache(maxsize=32)
-def _tables_np(s: int, h: int, w: int, hout: int, ds: int):
+def _tables_np(s: int, h: int, w: int, hout: int, wq: int, ds: int):
+    """The kernels' banded tables: "lift" (hout, s) = _resize_matrix(s, h)
+    zero-padded to hout rows; "width" (wq, s) = _resize_matrix(s, w)
+    zero-padded to wq rows, at least WIDTH_TAPS taps; with ds, the detect
+    downscale's "dw" (ds, w) and "dh" (ds, h) / 255."""
     lift = np.zeros((hout, s), np.float32)
     lift[:h] = _resize_matrix(s, h, True)
-    tabs = {"lift": _band(lift)}
+    width = np.zeros((wq, s), np.float32)
+    width[:w] = _resize_matrix(s, w, True)
+    tabs = {"lift": _band(lift), "width": _band(width, WIDTH_TAPS)}
     if ds:
         tabs["dw"] = _band(_resize_matrix(w, ds, True))
         tabs["dh"] = _band(_resize_matrix(h, ds, True) / 255.0)
     return tabs
 
 
+def _window_ld(nt: int) -> int:
+    """Floats in a row of the kernels' luminance window for a band of nt
+    threads: 16 * nt columns and a 4-column pad each side, plus 4 floats of
+    padding after every 32 (csrc/blend_up.cuh: window_ld)."""
+    c = 16 * nt + 8
+    return c + 4 * (c >> 5) + 4
+
+
 @functools.lru_cache(maxsize=32)
-def _tables(s, h, w, hout, ds, device: torch.device):
-    """`_tables_np` on `device`: f32 lift weights, bf16 detect weights."""
+def _window_rows(s: int, h: int, hout: int, rs: int = RS) -> int:
+    """The most low-res rows a strip of rs output rows lifts from: the rows a
+    block of K1 or K4 stages (rows >= h lift from none)."""
+    start, _, taps = _tables_np(s, h, h, hout, h, 0)["lift"]
+    n = 0
+    for y0 in range(0, min(hout, h), rs):
+        y1 = min(y0 + rs, h)
+        n = max(n, int(start[y1 - 1]) + taps - int(start[y0]))
+    return n
+
+
+@functools.lru_cache(maxsize=32)
+def _tables(s, h, w, hout, wq, ds, device: torch.device):
+    """`_tables_np` on `device`: f32 lift and width weights, bf16 detect
+    weights."""
     out = {}
-    for name, (start, wt, taps) in _tables_np(s, h, w, hout, ds).items():
-        dt = torch.float32 if name == "lift" else torch.bfloat16
+    for name, (start, wt, taps) in _tables_np(s, h, w, hout, wq, ds).items():
+        dt = torch.float32 if name in ("lift", "width") else torch.bfloat16
         out[name] = (torch.as_tensor(start, device=device),
                      torch.as_tensor(wt, device=device).to(dt).contiguous(), taps)
     return out
@@ -132,8 +167,16 @@ def _tables(s, h, w, hout, ds, device: torch.device):
 # K1: plain version and kernel launch
 # ---------------------------------------------------------------------------
 
-def _blend_plain(imgs_p, tmp, si, sw, h, w, hout, wq, ds, lowres):
+def _width_resized(pred_low: torch.Tensor, w: int, wq: int) -> torch.Tensor:
+    """tmp = pred_low @ mw^T (s -> W, zero-padded to wq): the plain version's
+    dense width resize, which the kernel does from staged low-res rows."""
+    mw = torch.as_tensor(_resize_matrix(pred_low.shape[-1], w, True), device=pred_low.device)
+    return torch.nn.functional.pad(pred_low.float() @ mw.t(), (0, wq - w))
+
+
+def _blend_plain(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres):
     dev = imgs_p.device
+    tmp = _width_resized(pred_low, w, wq)
     s = tmp.shape[1]
     lift = np.zeros((hout, s), np.float32)
     lift[:h] = _resize_matrix(s, h, True)
@@ -177,14 +220,31 @@ def _blend_plain(imgs_p, tmp, si, sw, h, w, hout, wq, ds, lowres):
     return out, bf(mdh) @ vd
 
 
-def _blend_cuda(imgs_p, tmp, si, sw, h, w, hout, wq, ds, lowres):
+def _blend_cuda(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres):
     if imgs_p.dtype != torch.uint8 or not imgs_p.is_contiguous():
         raise ValueError("fused_jnd_blend_planar kernel takes a contiguous u8 buffer")
     f, _, hp, wb = imgs_p.shape
-    s = tmp.shape[1]
+    s = pred_low.shape[-1]
+    if pred_low.shape != (f, s, s):
+        raise ValueError(f"fused_jnd_blend_planar: pred_low must be (F, s, s), got "
+                         f"{tuple(pred_low.shape)}")
+    if ds and wq > 16 * 256:
+        raise ValueError(f"fused_jnd_blend_planar kernel takes the detect output for frames "
+                         f"up to 4096 wide, got {wq}")
+    if ds % 8 or f > 65535 or imgs_p.data_ptr() % 16:
+        raise ValueError("fused_jnd_blend_planar kernel takes ds % 8 == 0, at most 65535 "
+                         "frames and a 16-byte aligned buffer")
+    pred_low = pred_low.float().contiguous()
     dev = imgs_p.device
-    tabs = _tables(s, h, w, hout, ds, dev)
-    ls, lw, lt = tabs["lift"]
+    tabs = _tables(s, h, w, hout, wq, ds, dev)
+    (ls, lw, lt), (ws, ww, wt) = tabs["lift"], tabs["width"]
+    nl = _window_rows(s, h, hout)
+    nt = min(256, -(-wq // 512) * 32 if ds else wq // 16)   # csrc/fused_planar.cu's launch
+    det_floats = 3 * wq + ds * (tabs["dw"][2] + 1) if ds else 0
+    smem = 4 * (-(-nl * s // 4) * 4 + (0 if lowres else 5 * _window_ld(nt)) + det_floats)
+    if smem > 232448:
+        raise ValueError(f"fused_jnd_blend_planar kernel: {smem} bytes of shared memory for "
+                         f"s={s}, {h}x{w} exceed the card's 232448")
     out = torch.empty((f, 3, hout, wq), dtype=torch.uint8, device=dev)
     vd = det = None
     ptr = lambda t: 0 if t is None else t.data_ptr()
@@ -197,9 +257,10 @@ def _blend_cuda(imgs_p, tmp, si, sw, h, w, hout, wq, ds, lowres):
     lib = _lib.library()
     stream = _lib.stream_ptr(imgs_p)
     _lib.check(lib.vs_blend_planar(
-        imgs_p.data_ptr(), tmp.data_ptr(), ls.data_ptr(), lw.data_ptr(), lt,
-        out.data_ptr(), ptr(vd), ptr(dws), ptr(dww), dwt, f, hp, wb, hout, wq, s, ds,
-        int(lowres), float(si), float(sw), stream), "vs_blend_planar")
+        imgs_p.data_ptr(), pred_low.data_ptr(), ls.data_ptr(), lw.data_ptr(), lt,
+        ws.data_ptr(), ww.data_ptr(), wt, out.data_ptr(), ptr(vd), ptr(dws), ptr(dww), dwt,
+        f, hp, wb, hout, h, wq, s, ds, int(lowres), RS, nl, float(si), float(sw), stream),
+        "vs_blend_planar")
     if ds:
         dhs, dhw, dht = tabs["dh"]
         _lib.check(lib.vs_detect_height(
@@ -208,19 +269,44 @@ def _blend_cuda(imgs_p, tmp, si, sw, h, w, hout, wq, ds, lowres):
     return out, det
 
 
+# K1's attribution variants (csrc/fused_planar.cu): the heat of jnd_heat.cuh's
+# HeatMode replaced by the window's centre (copy) or the raw stencil sums
+ATTRIBUTION_MODES = {"window": 0, "sums": 1, "production": 3}
+
+
+def blend_planar_attribution(imgs_p: torch.Tensor, pred_low: torch.Tensor, scaling_w: float,
+                             scaling_i: float, h: int, w: int, mode: str) -> torch.Tensor:
+    """K1's full-resolution branch (no detect output) with its heat cut
+    down by `mode` ("window": the rolling window and its barriers only,
+    "sums": the stencil sums without the transcendentals, "production"),
+    for timing what holds the kernel back. CUDA tensors only; counts no K1
+    launch; the output is the blend with that heat, not K1's."""
+    hout, wq = _prepare(imgs_p, pred_low, h, w)
+    f, _, hp, wb = imgs_p.shape
+    s = pred_low.shape[-1]
+    if imgs_p.device.type != "cuda" or imgs_p.dtype != torch.uint8 or not imgs_p.is_contiguous():
+        raise ValueError("blend_planar_attribution takes a contiguous u8 CUDA buffer")
+    pred_low = pred_low.float().contiguous()
+    tabs = _tables(s, h, w, hout, wq, 0, imgs_p.device)
+    (ls, lw, lt), (ws, ww, wt) = tabs["lift"], tabs["width"]
+    out = torch.empty((f, 3, hout, wq), dtype=torch.uint8, device=imgs_p.device)
+    _lib.check(_lib.library().vs_blend_planar_attr(
+        imgs_p.data_ptr(), pred_low.data_ptr(), ls.data_ptr(), lw.data_ptr(), lt, ws.data_ptr(),
+        ww.data_ptr(), wt, out.data_ptr(), f, hp, wb, hout, h, wq, s, RS,
+        _window_rows(s, h, hout), float(scaling_i), float(scaling_w), ATTRIBUTION_MODES[mode],
+        _lib.stream_ptr(imgs_p)), "vs_blend_planar_attr")
+    return out
+
+
 def _prepare(imgs_p, pred_low, h, w):
-    """Checks, output geometry and the width-resized prediction
-    tmp = pred_low @ mw^T (s -> W, zero-padded to Wq), which stays outside
-    the kernel as in the JAX package."""
+    """Checks and the output geometry (TH * n_tiles rows, wq columns)."""
     _, c, hp, wb = imgs_p.shape
     n_tiles, hp_want, wb_want, wq = planar_geometry(h, w)
     if (c, hp, wb) != (3, hp_want, wb_want):
         raise ValueError(f"buffer {tuple(imgs_p.shape)} does not match planar_shape for {h}x{w}")
     if pred_low.device != imgs_p.device:
         raise ValueError("imgs_p and pred_low must be on one device")
-    mw = torch.as_tensor(_resize_matrix(pred_low.shape[-1], w, True), device=imgs_p.device)
-    tmp = torch.nn.functional.pad(pred_low.float() @ mw.t(), (0, wq - w)).contiguous()
-    return tmp, TH * n_tiles, wq
+    return TH * n_tiles, wq
 
 
 def fused_jnd_blend_planar(imgs_p: torch.Tensor, pred_low: torch.Tensor,
@@ -236,8 +322,8 @@ def fused_jnd_blend_planar(imgs_p: torch.Tensor, pred_low: torch.Tensor,
     watermarked frames downscaled to (F, 3, ds, ds) f32 in [0, 1].
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel."""
-    tmp, hout, wq = _prepare(imgs_p, pred_low, h, w)
-    args = (imgs_p, tmp, scaling_i, scaling_w, h, w, hout, wq, detect_size or 0, lowres)
+    hout, wq = _prepare(imgs_p, pred_low, h, w)
+    args = (imgs_p, pred_low, scaling_i, scaling_w, h, w, hout, wq, detect_size or 0, lowres)
     if imgs_p.device.type == "cpu":
         out, det = _blend_plain(*args)
     elif imgs_p.device.type == "cuda":
@@ -254,7 +340,7 @@ fused_jnd_blend_planar.launches = 0
 def fused_jnd_blend_planar_plain(imgs_p, pred_low, scaling_w, scaling_i, h, w,
                                  detect_size=None, lowres=False):
     """The plain version on any device, to hold the kernel against."""
-    tmp, hout, wq = _prepare(imgs_p, pred_low, h, w)
-    out, det = _blend_plain(imgs_p, tmp, scaling_i, scaling_w, h, w, hout, wq,
+    hout, wq = _prepare(imgs_p, pred_low, h, w)
+    out, det = _blend_plain(imgs_p, pred_low, scaling_i, scaling_w, h, w, hout, wq,
                             detect_size or 0, lowres)
     return (out, det) if detect_size else out

@@ -3,7 +3,7 @@
 Two paths:
   * NHWC (``VideoSeal.embed / detect / extract_message``): (B|F, H, W, 3)
     frames, float in [0, 1] or u8, in and out. The full-resolution JND runs
-    through K4 (``kernels/fused_blend.fused_jnd_delta_up``) for a 1-channel
+    through K4's blend mode (``kernels/fused_blend.fused_jnd_blend_up``) for a 1-channel
     prediction and through K6 (``fused_jnd_blend``) for a 3-channel one on
     float frames; detect goes through K2.
   * planar (``embed_planar / detect_planar / embed_detect_planar``): padded
@@ -20,12 +20,14 @@ import dataclasses
 
 import torch
 
-from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_delta_up, supports_fused_blend
+from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_blend_up, supports_fused_blend
 from ..kernels.fused_planar import fused_jnd_blend_planar, resize_planar
 from ..modules.jnd import JND, build_attenuation
 from ..modules.msg_processor import get_random_msg
 from ..ops.color import rgb_to_y
 from ..ops.resize import resize_bilinear
+from ..utils.checkpoint import load_npz
+from ..utils.convert import from_jax_variables
 from .blender import blend
 from .embedder import EmbedderSpec, build_embedder
 from .extractor import ExtractorSpec, build_extractor
@@ -139,14 +141,10 @@ def embed_pipeline(embedder, attenuation: JND | None, cfg: PipelineConfig,
         if cfg.clamp and supports_fused_blend(preds_full.shape[-1], attenuation,
                                               cfg.blending_method):
             if preds_full.shape[-1] == 1:
-                # the kernel emits the delta plane, with the prediction's
-                # upsample inside it; the RGB blend is one elementwise pass here
-                delta = fused_jnd_delta_up(imgs, preds[..., 0], scaling_w)
-                if is_u8:
-                    out = imgs.float().mul_(scaling_i)
-                    out += 255.0 * delta[..., None]
-                    return out.round_().clamp_(0.0, 255.0).to(torch.uint8), preds_full
-                return torch.clamp(scaling_i * imgs + delta[..., None], 0.0, 1.0), preds_full
+                # K4's blend mode: the prediction's upsample, the JND and the
+                # RGB blend in one pass over the frames, in their dtype
+                return (fused_jnd_blend_up(imgs, preds[..., 0], scaling_i, scaling_w),
+                        preds_full)
             if not is_u8:
                 return (fused_jnd_blend(imgs, preds_full.contiguous(), scaling_i, scaling_w),
                         preds_full)
@@ -405,7 +403,9 @@ class VideoSeal:
     def from_card(cls, card: dict, checkpoint: str | None = None, device="cuda",
                   seed: int = 0) -> "VideoSeal":
         """Build on `device` (the card unless the caller asks for the CPU),
-        at random init from `seed` unless a checkpoint is given."""
+        at random init from `seed` unless a checkpoint is given: the JAX
+        package's native ``.npz`` or a reference-named ``torch.save`` file
+        (an http(s) URL is skipped)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VideoSeal.from_card builds on the CUDA device by default and "
@@ -433,7 +433,14 @@ class VideoSeal:
                     cfg, scaling_w=float(args.get("scaling_w", 1.0)),
                     scaling_i=float(args.get("scaling_i", 1.0)), card=card, seed=seed)
         checkpoint = checkpoint or card.get("checkpoint_path")
-        if checkpoint:
+        # a URL is skipped, as the JAX package skips it: nothing is fetched
+        if checkpoint and str(checkpoint).startswith(("http://", "https://")):
+            checkpoint = None
+        if checkpoint and str(checkpoint).endswith(".npz"):
+            emb, ext = from_jax_variables(*load_npz(str(checkpoint)))
+            model.embedder.load_state_dict(emb)
+            model.extractor.load_state_dict(ext)
+        elif checkpoint:
             ckpt = torch.load(checkpoint, map_location="cpu", weights_only=False)
             sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
             model.load_state_dict({k.removeprefix("module."): v for k, v in sd.items()})
