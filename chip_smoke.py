@@ -16,9 +16,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   4. K2 (ConvNeXt block: dwln, pw1, grn_stats, pw2) against its plain
      version at the four stage shapes, B=32, and at 3x12x20x96 and
      3x12x20x192 (masked last M tiles), bf16 and f32; per stage in bf16
-     times the block in turns with the earlier split kernels (split, new,
-     new, split), each part with its bound, and cuBLAS on the two products'
-     shapes (a yardstick the port never calls);
+     times the block twice, each part with its bound, and cuBLAS on the two
+     products' shapes (a yardstick the port never calls);
   5. the planar slice: videoseal_1.0 at random init (seed 0) in bf16,
      embed_detect_planar over 128 planar 1080p frames in the scored and the
      card-default modes; checks shapes, launch counts, the scaling_w=0
@@ -38,23 +37,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   8. the K6 path at full width: chunkyseal at random init in bf16, embed of
      8 float 1080p frames as images; checks the K6 launch, shapes and the
      scaling_w=0 identity (chunkyseal's detect is not run);
-  9. K3 (k ConvNeXt blocks in one launch) against its plain version and, bit
-     for bit, against k sequential launches of the earlier, split K2
-     kernels at the four stage shapes, B=32, k = 2, 3, 4, bf16 and f32;
-     times the groups of one grouped 32-frame chunk;
+  9. K3 (k ConvNeXt blocks in one launch, on K2's parts) against its plain
+     version and, bit for bit, against k K2 launches at the four stage
+     shapes, B=32, and at 3x12x20x96 (masked last M tiles), k = 2, 3, 4,
+     bf16 and f32; prints each instance's occupancy; times the groups of one
+     grouped 32-frame chunk beside the same blocks as K2 launches, and the
+     grid barrier on a grid of tiny phases;
  10. the extractor's grouped route: videoseal_1.0 at random init (seed 0) in
      bf16, convnext_apply_fused(max_block_group=4) plus the pixel decoder
      over 128 frames at 256x256 in chunks of 32 (K3 20 and K2 16 launches),
-     its logits near the max_block_group=1 route's and the CPU route's on 4
-     frames; times both routes in turns;
+     its logits equal to the max_block_group=1 route's and near the CPU
+     route's on 4 frames; times both routes in turns;
  11. the probes: every K7 variant (all strip heights, f32 and u8 frames)
      against its plain version at a small ragged size, K7's production
      variant against K5; then each probe's main() at the TPU probe's shapes
      (JSON lines); then every case of both sweeps against its plain version
      on the sweep's inputs and shapes (K7 at F=128, 1080p; K8 at
-     128x64x64x96 and 128x32x32x192), K7's production variant against K5
-     again, and the plain versions of the two cases the kernels line
-     reports timed.
+     128x64x64x96 and 128x32x32x192), K8's production_block on a zero
+     halo against K2, K7's production variant against K5 again, and the
+     plain versions of the two cases the kernels line reports timed.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -101,10 +102,9 @@ K2_ATOL, K2_RTOL = 5e-2, 2e-2
 SLICE_U8_MAX, SLICE_U8_SHARE, SLICE_LOGIT_ATOL = 2, 1e-2, 2e-2
 SLICE_FLOAT_ATOL = SLICE_U8_MAX / 255.0
 # grouped route, card vs CPU on 4 frames: the same bf16 forward with conv and
-# matmul sums in another order; measured 3.9e-3 on logits up to ~0.7. The
-# grouped route against the single one on the card: K3 runs the earlier split
-# block, the single route the new K2, whose pw1 sums in another order, so a
-# bf16 rounding of the hidden may flip: held to the same bound.
+# matmul sums in another order; measured 3.9e-3 on logits up to ~0.7. On the
+# card the grouped route equals the single one: K3 runs K2's parts on K2's
+# tiles, with the bf16 rounding between blocks that bf16 activations have.
 GROUPED_CPU_ATOL = 2e-2
 # K4/K5: the plain versions repeat the kernels' f32 arithmetic with sums in
 # another order (K4's width resize and lift as dense matmuls): ~1e-5 relative
@@ -354,14 +354,14 @@ def part_costs(b: int, h: int, w: int, c: int, esize: int, tiles: int) -> dict:
 
 def phase_k2(dev) -> dict:
     """K2 against its plain version at the four stage shapes (B=32) and two
-    ragged ones, bf16 and f32; per stage in bf16: the block and the earlier
-    split kernels in turns, each part with its bound, and cuBLAS on the two
-    products' shapes as a yardstick."""
+    ragged ones, bf16 and f32; per stage in bf16: the block timed twice, each
+    part with its bound, and cuBLAS on the two products' shapes as a
+    yardstick."""
     from videoseal_tpu_torch.kernels import convnext_block as cb
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rec, worst, stages = {}, 0.0, []
-    chunk = {"ms": 0.0, "split_ms": 0.0, "plain_ms": 0.0}
+    chunk = {"ms": 0.0, "plain_ms": 0.0}
     nbytes = f32_ops = bf16_ops = 0.0
     # ragged: 240 pixels a frame, so the last M tile of pw1 (128 rows) and of
     # pw2 (128 rows at C=96, 64 at C=192) is masked
@@ -389,11 +389,7 @@ def phase_k2(dev) -> dict:
             worst = max(worst, float(err.max()))
             if not staged or dtype != torch.bfloat16:
                 continue
-            # in turns on the one card: split, new, new, split
-            t = {"split": [], "new": []}
-            for name in ("split", "new", "new", "split"):
-                fn = cb._launch_split if name == "split" else cb.convnext_block_fused
-                t[name].append(cuda_ms(lambda: fn(x, p), reps=10))
+            runs = [cuda_ms(lambda: cb.convnext_block_fused(x, p), reps=10) for _ in range(2)]
             pms = cuda_ms(lambda: cb.convnext_block_plain(x, p))
             calls, buf = cb.k2_parts(x, p)
             costs = part_costs(b, h, w, c, x.element_size(), buf["part"].shape[1])
@@ -404,26 +400,22 @@ def phase_k2(dev) -> dict:
             # cuBLAS on the products' bf16 shapes: yardsticks, never called by the port
             blas = {"pw1": cuda_ms(lambda: torch.matmul(buf["a"], p["w1"].t()), reps=20),
                     "pw2": cuda_ms(lambda: torch.matmul(buf["hid"], p["w2"].t()), reps=20)}
-            new_ms, split_ms = sum(t["new"]) / 2, sum(t["split"]) / 2
-            log(f"[K2] B=32 {h}x{w}x{c} bf16: new {t['new']} ms, split {t['split']} ms, plain "
-                f"{pms:.3f} ms; " + ", ".join(
-                    f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['bound_by']})"
-                    for n, r in parts.items())
+            ms = sum(runs) / 2
+            log(f"[K2] B=32 {h}x{w}x{c} bf16: {runs} ms, plain {pms:.3f} ms; " + ", ".join(
+                f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['bound_by']})"
+                for n, r in parts.items())
                 + f"; cuBLAS pw1 {blas['pw1']:.4f} ms, pw2 {blas['pw2']:.4f} ms")
-            rec[key].update(ms=new_ms, split_ms=split_ms, turns=t, plain_ms=pms, parts=parts,
-                            cublas_ms=blas)
-            stages.append({"shape": [b, h, w, c], "blocks": DEPTHS[i], "ms": new_ms,
-                           "split_ms": split_ms, "parts": parts, "cublas_ms": blas})
-            chunk["ms"] += DEPTHS[i] * new_ms
-            chunk["split_ms"] += DEPTHS[i] * split_ms
+            rec[key].update(ms=ms, runs=runs, plain_ms=pms, parts=parts, cublas_ms=blas)
+            stages.append({"shape": [b, h, w, c], "blocks": DEPTHS[i], "ms": ms,
+                           "parts": parts, "cublas_ms": blas})
+            chunk["ms"] += DEPTHS[i] * ms
             chunk["plain_ms"] += DEPTHS[i] * pms
             del calls, buf
         torch.cuda.empty_cache()
     bound_ms, bound_by = bound(nbytes, f32_ops=f32_ops, bf16_ops=bf16_ops)
-    log(f"[K2] 18 blocks of one chunk of 32 frames, bf16: kernel {chunk['ms']:.3f} ms, the earlier "
-        f"split kernels {chunk['split_ms']:.3f} ms ({chunk['ms'] / chunk['split_ms']:.1%} of "
-        f"it), plain {chunk['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), kernel "
-        f"at {bound_ms / chunk['ms']:.1%} of it")
+    log(f"[K2] 18 blocks of one chunk of 32 frames, bf16: kernel {chunk['ms']:.3f} ms, plain "
+        f"{chunk['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), kernel at "
+        f"{bound_ms / chunk['ms']:.1%} of it")
     return {"checks": rec, "stages": stages, "max_abs_err": worst, **chunk,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -731,72 +723,93 @@ def phase_chunky(dev) -> dict:
     return rec
 
 def phase_k3(dev) -> dict:
-    """K3 against its plain version and, bit for bit, against k sequential
-    launches of the earlier, split K2 kernels (the device functions K3 runs,
-    the same bf16 rounding between blocks) at the four stage shapes, B=32,
-    k = 2, 3, 4, bf16 and f32; times the K3 groups of one grouped 32-frame
-    chunk."""
-    from videoseal_tpu_torch.kernels.convnext_block import (_launch_split, block_params,
-                                                            convnext_blocks_fused,
-                                                            convnext_blocks_plain)
+    """K3 against its plain version and, bit for bit, against k K2 launches
+    (K3 runs K2's parts on K2's tiles, with the bf16 rounding between
+    blocks) at the four stage shapes, B=32, and at 3x12x20x96, k = 2, 3, 4,
+    bf16 and f32; each instance's occupancy; times the K3 groups of one
+    grouped 32-frame chunk beside the same blocks as K2 launches, and the
+    grid barrier."""
+    from videoseal_tpu_torch.kernels import convnext_block as cb
     from videoseal_tpu_torch.kernels.convnext_fused import block_groups
-    rec, worst = {}, 0.0
+
+    def seq_k2(x, ps):
+        y = x
+        for p in ps[:-1]:
+            y = cb._launch(y, p).to(torch.bfloat16)
+        return cb._launch(y.to(x.dtype), ps[-1])
+
+    rec, worst, occupancy = {}, 0.0, {}
     chunk = {"ms": 0.0, "plain_ms": 0.0, "k2_ms": 0.0}
     nbytes = f32_ops = bf16_ops = 0.0
-    for i, (h, w, c) in enumerate(STAGES):
-        groups = [k for k in block_groups(DEPTHS[i], 4) if k > 1]
+    cases = [(32, h, w, c) for h, w, c in STAGES] + [(3, 12, 20, 96)]
+    for i, (b, h, w, c) in enumerate(cases):
+        staged = i < len(STAGES)
+        groups = [k for k in block_groups(DEPTHS[i], 4) if k > 1] if staged else []
         for dtype in (torch.bfloat16, torch.float32):
-            ps = [block_params(_random_block(c, 20 + 4 * i + j, dev, dtype)) for j in range(4)]
+            ps = [cb.block_params(_random_block(c, 20 + 4 * i + j, dev, dtype)) for j in range(4)]
             g = torch.Generator(device=dev).manual_seed(30 + i)
-            x = torch.randn((32, h, w, c), generator=g, device=dev).to(dtype)
+            x = torch.randn((b, h, w, c), generator=g, device=dev).to(dtype)
+            shape = f"{b}x{h}x{w}x{c},{str(dtype)[6:]}"
+            occupancy[shape] = cb.group_occupancy(x)
+            log(f"[K3] {shape}: occupancy {occupancy[shape]}")
             for k in (2, 3, 4):
-                def seq_k2(k=k):
-                    y = x
-                    for p in ps[:k - 1]:
-                        y = _launch_split(y, p).to(torch.bfloat16)
-                    return _launch_split(y.to(dtype), ps[k - 1])
-                a = convnext_blocks_fused(x, ps[:k]).float()
-                b = convnext_blocks_plain(x, ps[:k]).float()
-                q = seq_k2().float()
+                a = cb.convnext_blocks_fused(x, ps[:k]).float()
+                ref = cb.convnext_blocks_plain(x, ps[:k]).float()
+                q = seq_k2(x, ps[:k]).float()
                 torch.cuda.synchronize()
-                err, qerr = (a - b).abs(), (a - q).abs()
-                key = f"{h}x{w}x{c},{str(dtype)[6:]},k={k}"
-                log(f"[K3] B=32 {key}: vs plain max abs err {float(err.max()):.3e}, mean "
-                    f"{float(err.mean()):.3e}; vs {k} split K2 launches max abs err "
-                    f"{float(qerr.max()):.3e} (identical {bool(torch.equal(a, q))})")
+                err, same = (a - ref).abs(), torch.equal(a, q)
+                key = f"{shape},k={k}"
+                log(f"[K3] {key}: vs plain max abs err {float(err.max()):.3e}, mean "
+                    f"{float(err.mean()):.3e}; identical to {k} K2 launches: {same}")
                 if (not bool(torch.isfinite(a).all())
-                        or bool((err > K2_ATOL + K2_RTOL * b.abs()).any())
-                        or not torch.equal(a, q)):
+                        or bool((err > K2_ATOL + K2_RTOL * ref.abs()).any()) or not same):
                     raise AssertionError(f"K3 disagrees with its plain version, or is not "
-                                         f"bit-identical to {k} split K2 launches, at {key}")
+                                         f"bit-identical to {k} K2 launches, at {key}")
                 rec[key] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
-                            "vs_k2_max_abs_err": float(qerr.max()),
-                            "vs_k2_identical": bool(torch.equal(a, q))}
+                            "vs_k2_identical": same}
                 if dtype != torch.bfloat16:
                     continue
                 worst = max(worst, float(err.max()))
                 if k not in groups:
                     continue
-                ms = cuda_ms(lambda: convnext_blocks_fused(x, ps[:k]))
-                pms = cuda_ms(lambda: convnext_blocks_plain(x, ps[:k]))
-                qms = cuda_ms(seq_k2)
-                log(f"[K3] B=32 {key}: kernel {ms:.3f} ms, {k} split K2 launches {qms:.3f} ms, "
+                # in turns on the one card: K2 launches, K3, K3, K2 launches
+                t = {"k3": [], "k2": []}
+                for name in ("k2", "k3", "k3", "k2"):
+                    fn = (lambda: cb.convnext_blocks_fused(x, ps[:k])) if name == "k3" else (
+                        lambda: seq_k2(x, ps[:k]))
+                    t[name].append(cuda_ms(fn, reps=10))
+                ms, qms = sum(t["k3"]) / 2, sum(t["k2"]) / 2
+                pms = cuda_ms(lambda: cb.convnext_blocks_plain(x, ps[:k]))
+                log(f"[K3] B=32 {key}: kernel {t['k3']} ms, {k} K2 launches {t['k2']} ms, "
                     f"plain {pms:.3f} ms")
-                rec[key].update(ms=ms, plain_ms=pms, k2_ms=qms)
+                rec[key].update(ms=ms, plain_ms=pms, k2_ms=qms, turns=t)
                 n = groups.count(k)
                 nb, bo, fo = block_cost(h, w, c, k=k)
                 nbytes, bf16_ops, f32_ops = nbytes + n * nb, bf16_ops + n * bo, f32_ops + n * fo
-                for name, t in (("ms", ms), ("plain_ms", pms), ("k2_ms", qms)):
-                    chunk[name] += n * t
+                for name, v in (("ms", ms), ("plain_ms", pms), ("k2_ms", qms)):
+                    chunk[name] += n * v
+            del ps, x
         torch.cuda.empty_cache()
+    # the grid barrier: K3 on 264 frames of 8x2x16, so that the dwln phase
+    # fills the 2 x 132 co-resident blocks and every phase's work is tiny;
+    # k = 4 runs 12 barriers (and 12 tiny phases) more than k = 1
+    ps = [cb.block_params(_random_block(16, 40 + j, dev, torch.bfloat16)) for j in range(4)]
+    xs = torch.randn((264, 8, 2, 16), device=dev).to(torch.bfloat16)
+    tk = {k: cuda_ms(lambda k=k: cb.convnext_blocks_fused(xs, ps[:k]), reps=20) for k in (1, 4)}
+    barrier_us = (tk[4] - tk[1]) / 12 * 1e3
+    log(f"[K3] tiny phases on grid {cb.group_occupancy(xs)['grid']}: k=1 {tk[1]:.4f} ms, k=4 "
+        f"{tk[4]:.4f} ms: {barrier_us:.2f} us a barrier with its tiny phase (an upper bound "
+        f"on the barrier)")
     bound_ms, bound_by = bound(nbytes, f32_ops=f32_ops, bf16_ops=bf16_ops)
     groups = [k for d in DEPTHS for k in block_groups(d, 4) if k > 1]
     log(f"[K3] the {len(groups)} groups ({sum(groups)} blocks) of one grouped chunk of 32 "
-        f"frames, bf16: kernel {chunk['ms']:.3f} ms, the same blocks as split K2 launches "
-        f"{chunk['k2_ms']:.3f} ms, plain {chunk['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by}), kernel at {bound_ms / chunk['ms']:.1%} of it")
+        f"frames, bf16: kernel {chunk['ms']:.3f} ms, the same blocks as K2 launches "
+        f"{chunk['k2_ms']:.3f} ms ({chunk['ms'] / chunk['k2_ms'] - 1:+.1%}), plain "
+        f"{chunk['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), kernel at "
+        f"{bound_ms / chunk['ms']:.1%} of it")
     return {"checks": rec, "max_abs_err": worst, **chunk, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "occupancy": occupancy, "barrier_us": barrier_us,
+            "tiny_ms": tk}
 
 
 def phase_grouped(dev, smi: str) -> dict:
@@ -823,19 +836,18 @@ def phase_grouped(dev, smi: str) -> dict:
     rec = {"launches": check_counts("grouped", {"K3": chunks * sum(k > 1 for k in groups),
                                                 "K2": chunks * groups.count(1)})}
     single = extract(model.extractor, frames, 1)
-    ld = float((grouped - single).abs().max())
+    same = torch.equal(grouped, single)
     cpu = vt.load("videoseal_1.0", device="cpu", seed=0).with_dtype("bfloat16")
     cd = float((grouped[:4].cpu() - extract(cpu.extractor, frames[:4].cpu(), 4)).abs().max())
     del cpu
     log(f"[grouped] logits {tuple(grouped.shape)}, max |logit| "
-        f"{float(grouped.abs().max()):.3f}; grouped vs single route max abs diff {ld:.3e}; "
+        f"{float(grouped.abs().max()):.3f}; identical to the single route: {same}; "
         f"F=4, card vs CPU max abs diff {cd:.3e}")
     if (tuple(grouped.shape) != (F_SLICE, 1 + model.nbits)
-            or not bool(torch.isfinite(grouped).all())
-            or ld > GROUPED_CPU_ATOL or cd > GROUPED_CPU_ATOL):
-        raise AssertionError("grouped route logits have the wrong shape, are not finite, or "
-                             "disagree with the single route or the CPU")
-    rec.update(vs_single=ld, cpu_vs_card=cd)
+            or not bool(torch.isfinite(grouped).all()) or not same or cd > GROUPED_CPU_ATOL):
+        raise AssertionError("grouped route logits have the wrong shape, are not finite, "
+                             "differ from the single route or disagree with the CPU")
+    rec.update(identical_to_single=same, cpu_vs_card=cd)
     # in turns on the one card: grouped, single, single, grouped
     times = {"grouped": [], "single": []}
     for name, mbg in (("grouped", 4), ("single", 1), ("single", 1), ("grouped", 4)):
@@ -857,6 +869,7 @@ def phase_probes(dev) -> dict:
     from videoseal_tpu_torch.kernels import convnext_probe as cp
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels import jnd_probe as jp
+    from videoseal_tpu_torch.kernels.convnext_block import _launch as k2_launch
     errs = {}
 
     def hold7(tag: str, a: torch.Tensor, b: torch.Tensor) -> float:
@@ -940,6 +953,18 @@ def phase_probes(dev) -> dict:
                     or float(err.mean()) > K8_MEAN or float(err.max()) > K8_MAX):
                 raise AssertionError(f"K8 {v} at {shape} disagrees with its plain version")
             del a, b, err
+            if v == "production_block":
+                # K2's own block: on a zero halo, K2 bit for bit
+                z = torch.zeros_like(xpad)
+                z[:, 3:-3, 3:-3] = xpad[:, 3:-3, 3:-3]
+                same = torch.equal(cp.convnext_probe(z, p, v),
+                                   k2_launch(z[:, 3:-3, 3:-3].contiguous(), p))
+                log(f"[K8] {'x'.join(map(str, shape))} production_block on a zero halo identical "
+                    f"to K2: {same}")
+                if not same:
+                    raise AssertionError(f"K8 production_block differs from K2 at {shape}")
+                errs[f"{key},zero_halo_is_k2"] = same
+                del z
             if v == "production_block" and k8_plain is None:
                 k8_case = (key, shape)
                 k8_plain = cuda_ms(lambda: cp.convnext_probe_plain(xpad, p, v))
@@ -1090,9 +1115,14 @@ def main() -> int:
          "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
          "bound_by": measured[k]["bound_by"], "library_ms": None}
         for k, (name, src, tpu) in sources.items()]
-    # K2 is four launches from two sources and the GEMM core they share; K1
-    # and K4 share blend_up.cuh (and the heat with K5-K7)
-    for i, files in ((1, ("convnext_dwln.cu", "convnext_pw.cu", "gemm_tn.cuh")),
+    # K2 is four launches from two sources on the shared parts' headers and
+    # the GEMM core, which K3 and K8 run too; K1 and K4 share blend_up.cuh
+    # (and the heat with K5-K7)
+    parts = ("convnext_dwln.cuh", "convnext_pw.cuh", "gemm_tn.cuh")
+    for i, files in ((1, ("convnext_dwln.cu", "convnext_pw.cu", *parts)),
+                     (2, ("convnext_group.cu", "convnext_group_f32.cu", "convnext_group.cuh",
+                          *parts)),
+                     (7, ("convnext_probe.cu", *parts)),
                      (0, ("fused_planar.cu", "blend_up.cuh", "jnd_heat.cuh")),
                      (3, ("jnd_up.cu", "blend_up.cuh", "jnd_heat.cuh"))):
         kernels[i]["sources"] = [f"videoseal_tpu_torch/csrc/{f}" for f in files]

@@ -105,6 +105,27 @@ def test_blocks_plain_matches_pallas(k, dtype):
     assert np.abs(got.float().numpy() - want).mean() < 3e-3 * k
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blocks_plain_matches_pallas_masked_shape(dtype):
+    """12x20 frames: 240 pixels, not a multiple of 64, so K3's last M tile
+    of every GEMM phase is masked on the card; the plain version against the
+    Pallas kernel at k = 2."""
+    shape, k = (2, 12, 20, 32), 2
+    plist = _linen_params(shape[-1], k, seed=7)
+    x = np.random.default_rng(8).normal(size=shape).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    jp = plist if dtype == "float32" else jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a).astype(jnp.bfloat16), plist)
+    want = np.asarray(jax_blocks(jx, tuple(jp), interpret=True, k=k), np.float32)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(tdt)
+    got = convnext_blocks_plain(xt, _port_params(plist, tdt))
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BLOCKS_TOL[k],
+                               rtol=BLOCKS_TOL[k])
+    assert np.abs(got.float().numpy() - want).mean() < 3e-3 * k
+
+
 def _blocks_tanh(x: torch.Tensor, ps, between: torch.dtype) -> torch.Tensor:
     """The K3 plain chain with the tanh GELU, the intermediates in `between`."""
     pad = lambda t: F.pad(t, (0, 0, 3, 3, 3, 3))
@@ -213,31 +234,35 @@ def test_block_groups_rejects_zero():
         block_groups(3, 0)
 
 
-@pytest.mark.parametrize("shape", [(8, 8, 1536), (16, 16, 784), (12, 12, 1600), (8, 8, 200),
+@pytest.mark.parametrize("shape", [(16, 64, 1024), (32, 60, 1024), (16, 16, 792), (8, 8, 200),
                                    (5, 5, 96)])
 def test_block_groups_single_where_k3_cannot_go(shape):
-    """A stage K3 does not take (C > 768, or 1536 where H*W % 32 != 0;
-    C % 16 != 0; H*W % 16 != 0) runs in groups of one, K2 launches, as the
-    JAX route sizes such a stage's groups down to single blocks."""
+    """A stage K3 does not take (K2's rule: 4*W*C over the 232,448 bytes of
+    shared memory, C % 16 != 0, H*W % 16 != 0) runs in groups of one, K2
+    launches, as the JAX route sizes such a stage's groups down to single
+    blocks."""
     assert not k3_takes(*shape)
     for depth in (1, 3, 9):
         assert block_groups(depth, 4, shape) == [1] * depth
 
 
 def test_block_groups_unchanged_where_k3_goes():
-    """videoseal_1.0's four stages at 256 px, and a C = 1536 stage where
-    H*W % 32 != 0 (16-pixel tiles), keep the grouping K3 takes."""
+    """videoseal_1.0's four stages at 256 px, and stages with C > 768 that
+    K2's rule takes, keep the grouping K3 takes."""
     for (h, w, c), d in zip(((64, 64, 96), (32, 32, 192), (16, 16, 384), (8, 8, 768)),
                             (3, 3, 9, 3)):
         assert block_groups(d, 4, (h, w, c)) == block_groups(d, 4)
-    assert k3_takes(4, 4, 1536) and block_groups(3, 4, (4, 4, 1536)) == [2, 1]
+    for shape in ((8, 8, 1536), (16, 16, 784), (12, 12, 1600), (4, 4, 1536), (8, 8, 1024)):
+        assert k3_takes(*shape) and block_groups(3, 4, shape) == [2, 1]
+    assert k3_takes(16, 56, 1024)   # 4*W*C = 229,376 bytes, just within
 
 
 def test_grouped_route_sends_big_stages_to_k2(monkeypatch):
     """convnext_apply_fused(max_block_group=4) on an encoder whose last
-    stage is 8x8x1024: that stage's blocks go one by one to K2's wrapper,
-    the first stage's pair to K3's, and the result is the single route's
-    up to the bf16 rounding K3 makes between the blocks of a group."""
+    stage is 8x8x1024: K2's rule takes it (4*W*C = 32,768 bytes), so that
+    stage's pair goes to K3 as the first stage's does, the single blocks
+    between to K2, and the result is the single route's up to the bf16
+    rounding K3 makes between the blocks of a group."""
     from videoseal_tpu_torch.kernels import convnext_fused as cf
     from videoseal_tpu_torch.models.videoseal import init_weights
     from videoseal_tpu_torch.modules.convnext import ConvNeXtV2
@@ -255,7 +280,7 @@ def test_grouped_route_sends_big_stages_to_k2(monkeypatch):
         got = convnext_apply_fused(enc, x, max_block_group=4)
         grouped_calls, calls[:] = list(calls), []
         want = convnext_apply_fused(enc, x, max_block_group=1)
-    assert grouped_calls == [("K3", 16), ("K2", 32), ("K2", 64), ("K2", 1024), ("K2", 1024)]
+    assert grouped_calls == [("K3", 16), ("K2", 32), ("K2", 64), ("K3", 1024)]
     assert tuple(got.shape) == (1, 8, 8, 1024)
     # K3's plain version rounds the first block's output to bf16 (2^-9
     # relative) before the second; the later stages carry that through LN

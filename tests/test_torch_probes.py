@@ -187,6 +187,22 @@ def test_convnext_probe_plain_matches_pallas(variant):
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("variant", ["block_gelu", "block_gelu_tanh_bf16dw"])
+def test_convnext_probe_plain_matches_pallas_masked(variant):
+    """A block variant on a padded input whose halo is data, at 12x20 (240
+    pixels: the card's last M tiles masked, the padded residual read with a
+    row pitch of W + 6 that no tile boundary follows)."""
+    a = _cnx_inputs(b=2, h=12, w=20, c=16, seed=20 + list(tcp.VARIANTS).index(variant))
+    want = _jax_cnx_probe(variant, a)
+    xpad, p = _port_cnx_inputs(a)
+    assert float(xpad[:, :3].abs().max()) > 0   # the halo is data
+    got = tcp.convnext_probe(xpad, p, variant)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape == (2, 12, 20, 16)
+    form = tcp.VARIANTS[variant][0]
+    tol = K8_TOL["block_bf16dw" if form == "bf16" else "block"]
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
 def test_convnext_probe_production_is_k2():
     """production_block on a zero halo is K2's plain block; the CPU wrapper
     counts nothing."""

@@ -3,8 +3,8 @@ runs only where the CUDA toolkit is installed)."""
 
 from videoseal_tpu_torch.kernels.sass_diff import _key, _regions, parse
 
-OLD = "_ZN50_GLOBAL__N__1ab40703_17_convnext_block_cu_46e100b211cnx_block_bIfEEvPKfiiii"
-NEW = "_ZN50_GLOBAL__N__301540d8_17_convnext_block_cu_46e100b211cnx_block_bIfEEvPKfiiii"
+OLD = "_ZN49_GLOBAL__N__1ab40703_16_convnext_dwln_cu_46e100b28cnx_dwlnIfEEvPKT_PKfS4_S4_S4_P13__nv_bfloat16iii"
+NEW = "_ZN49_GLOBAL__N__301540d8_16_convnext_dwln_cu_46e100b28cnx_dwlnIfEEvPKT_PKfS4_S4_S4_P13__nv_bfloat16iii"
 
 SASS = f"""
 \tcode for sm_90a
@@ -31,7 +31,8 @@ RES = f"""Resource usage:
 
 
 def test_key_drops_the_per_file_namespace_hash():
-    assert _key(OLD) == _key(NEW) == "_ZN11_GLOBAL__N_11cnx_block_bIfEEvPKfiiii"
+    assert (_key(OLD) == _key(NEW)
+            == "_ZN11_GLOBAL__N_8cnx_dwlnIfEEvPKT_PKfS4_S4_S4_P13__nv_bfloat16iii")
     assert _key("_Z6kernelPf") == "_Z6kernelPf"
 
 

@@ -36,13 +36,11 @@ SIGNATURES = {
     "vs_cnx_grn": [P] * 3 + [I] * 3 + [P],
     "vs_cnx_pw2_f32": [P] * 7 + [I] * 4 + [P],
     "vs_cnx_pw2_bf16": [P] * 7 + [I] * 4 + [P],
-    "vs_cnx_block_a_f32": [P] * 9 + [I] * 5 + [P],
-    "vs_cnx_block_a_bf16": [P] * 9 + [I] * 5 + [P],
-    "vs_cnx_block_b_f32": [P] * 8 + [I] * 5 + [P],
-    "vs_cnx_block_b_bf16": [P] * 8 + [I] * 5 + [P],
-    "vs_cnx_group_f32": [P] * 7 + [I] * 6 + [P],
-    "vs_cnx_group_bf16": [P] * 7 + [I] * 6 + [P],
-    "vs_cnx_probe": [P] * 14 + [I] * 6 + [P],
+    "vs_cnx_group_f32": [P] * 9 + [I] * 6 + [P],
+    "vs_cnx_group_bf16": [P] * 9 + [I] * 6 + [P],
+    "vs_cnx_group_f32_info": [I] * 5 + [P],
+    "vs_cnx_group_bf16_info": [I] * 5 + [P],
+    "vs_cnx_probe": [P] * 16 + [I] * 6 + [P],
     "vs_jnd_up": [P, I, P, P, P, I, P, P, I, P, I] + [I] * 6 + [F] * 5 + [P],
     "vs_jnd_delta": [P, I, P, P] + [I] * 3 + [F] * 4 + [P],
     "vs_jnd_blend": [P, P, I, I, P] + [I] * 3 + [F] * 5 + [P],

@@ -4,9 +4,11 @@ K2 replaces ``videoseal_tpu/kernels/convnext_block.py::convnext_block_fused``,
 K3 ``convnext_blocks_fused``. K2 is four launches: ``dwln`` (depthwise 7x7 +
 LN, ``csrc/convnext_dwln.cu``), then ``pw1``, ``grn_stats`` and ``pw2``
 (``csrc/convnext_pw.cu`` on the tiled tensor-core GEMM of
-``csrc/gemm_tn.cuh``); the sources say what bounds each on the H100. K3 and
-the K8 probe run the earlier two-part design (``csrc/convnext_block.cuh``),
-kept here as ``_launch_split``.
+``csrc/gemm_tn.cuh``); the parts' bodies are device functions in
+``csrc/convnext_dwln.cuh`` and ``csrc/convnext_pw.cuh``, which say what
+bounds each on the H100. K3 (``csrc/convnext_group.cuh``) runs the same
+parts as the 4k phases of one cooperative launch, bit for bit k K2 launches,
+and the K8 probe (``kernels/convnext_probe.py``) runs them with its switches.
 This module holds the plain PyTorch versions (the same math, rounding at
 the same places; K2's plain version is its four parts' plain versions in
 turn) and the wrappers that pick between them by the tensor's device: a CPU
@@ -29,6 +31,8 @@ from . import _lib
 # one block's parameters in the order of csrc's BlockW
 _PARAM_ORDER = ("dw", "dwb", "lnw", "lnb", "w1", "b1", "gamma", "beta", "w2", "b2")
 MAX_GROUP = 4   # blocks per K3 launch (csrc MAXK)
+# K2's limit (csrc/convnext_dwln.cuh): the shared memory of a block
+SMEM_MAX = 232448
 
 
 def block_params(blk) -> dict:
@@ -64,9 +68,10 @@ def kernel_params(blk) -> dict:
 
 
 def dw_plain(xpad: torch.Tensor, dw: torch.Tensor, form: str = "perdy") -> torch.Tensor:
-    """Depthwise 7x7 sum, without its bias, of part (a)'s ``dw_sum<DW>``:
-    "perdy" per-row partials (K2), "taps" one chain with dy outer, "shift"
-    one chain with dx outer, "bf16" bf16 products and sums. xpad (B, H+6,
+    """Depthwise 7x7 sum, without its bias, in the order of dwln_row's form
+    (csrc/convnext_dwln.cuh): "perdy" per-row partials (K2), "taps" one
+    chain with dy outer, "shift" one chain with dx outer, "bf16" bf16
+    products and sums. xpad (B, H+6,
     W+6, C) -> (B, H, W, C) f32."""
     h, w = xpad.shape[1] - 6, xpad.shape[2] - 6
     if form == "bf16":
@@ -100,7 +105,7 @@ def dw_plain(xpad: torch.Tensor, dw: torch.Tensor, form: str = "perdy") -> torch
     return acc
 
 
-# part (a)'s activation after pw1, act<ACT> in csrc: erf is the model's GELU
+# the activation after pw1, act<ACT> in csrc/convnext_pw.cuh: erf is the model's GELU
 ACTIVATIONS = {
     "erf": F.gelu,
     "none": lambda v: v,
@@ -195,20 +200,9 @@ def convnext_blocks_plain(x: torch.Tensor, params_list) -> torch.Tensor:
 
 
 def k3_takes(h: int, w: int, c: int) -> bool:
-    """Whether K3 (and the split kernels it runs) takes frames of h x w x c:
-    C % 16 == 0, H*W % 16 == 0 and C <= 768 (1536 where H*W % 32 != 0)."""
-    hw = h * w
-    p = 32 if hw % 32 == 0 else 16
-    return not (c % 16 or hw % 16 or (p // 16) * (c // 16) > 96)
-
-
-def _kernel_tile(h: int, w: int, c: int) -> int:
-    """Pixels per block: 32 where the frame allows, else 16."""
-    p = 32 if (h * w) % 32 == 0 else 16
-    if not k3_takes(h, w, c):
-        raise ValueError(f"convnext_block_fused kernel takes C % 16 == 0, "
-                         f"H*W % 16 == 0 and C <= 768, got H={h} W={w} C={c}")
-    return p
+    """Whether K3 takes frames of h x w x c: K2's rule (`_check_shape`),
+    since K3 runs K2's parts."""
+    return not (c % 16 or (h * w) % 16 or 4 * w * c > SMEM_MAX)
 
 
 def _check(name: str, x: torch.Tensor, params_list, dtypes=(torch.float32, torch.bfloat16)):
@@ -222,17 +216,13 @@ def _check(name: str, x: torch.Tensor, params_list, dtypes=(torch.float32, torch
                 raise ValueError(f"parameter {k} must be contiguous on {x.device}")
 
 
-# the new K2's limit (csrc/convnext_dwln.cu): the shared memory of a block
-SMEM_MAX = 232448
-
-
 def _check_shape(b: int, h: int, w: int, c: int) -> int:
-    """The new K2's shape check: C % 16 == 0 (16-byte rows for cp.async and
-    the vector loads), H*W % 16 == 0, and one image row of dwln's f32 output,
-    all channels, within shared memory. Returns the GEMMs' frame-local M
-    tile: 128 rows where a frame has that many, else 64."""
+    """K2's shape check (K3's and K8's too): C % 16 == 0 (16-byte rows for
+    cp.async and the vector loads), H*W % 16 == 0, and one image row of
+    dwln's f32 output, all channels, within shared memory. Returns the GEMMs'
+    frame-local M tile: 128 rows where a frame has that many, else 64."""
     hw = h * w
-    if c % 16 or hw % 16 or 4 * w * c > SMEM_MAX:
+    if not k3_takes(h, w, c):
         raise ValueError(f"convnext_block_fused kernel takes C % 16 == 0, H*W % 16 == 0 and "
                          f"4*W*C <= {SMEM_MAX} bytes of shared memory, got H={h} W={w} C={c}")
     bm = 128 if hw >= 128 else 64
@@ -243,7 +233,7 @@ def _check_shape(b: int, h: int, w: int, c: int) -> int:
 
 
 def k2_parts(x: torch.Tensor, p: dict) -> tuple[list, dict]:
-    """The new K2's four launches on x, in order, as (name, call) pairs over
+    """K2's four launches on x, in order, as (name, call) pairs over
     buffers allocated here, and the buffers: "a" (dwln's output), "hid" and
     "part" (pw1's), "gn" (grn_stats'), "out" (pw2's). Each call launches its
     kernel and raises if the launch fails."""
@@ -287,37 +277,11 @@ def k2_parts(x: torch.Tensor, p: dict) -> tuple[list, dict]:
 
 
 def _launch(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """The new K2: dwln, pw1, grn_stats and pw2, four launches."""
+    """K2: dwln, pw1, grn_stats and pw2, four launches."""
     calls, buf = k2_parts(x, p)
     for _, call in calls:
         call()
     return buf["out"]
-
-
-def _launch_split(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """The earlier K2 design, parts (a) and (b) of csrc/convnext_block.cuh
-    (K3 and the K8 probe run the same device functions): the yardstick K3 is
-    held against bit for bit, and the new design's before. Not on a path."""
-    _check("convnext_block_fused", x, [p])
-    b, h, w, c = x.shape
-    tile = _kernel_tile(h, w, c)
-    lib = _lib.library()
-    sfx = "f32" if x.dtype == torch.float32 else "bf16"
-    xpad = F.pad(x, (0, 0, 3, 3, 3, 3)).contiguous()
-    ntile = h * w // tile
-    hmid = torch.empty((b, h * w, 4 * c), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((b, ntile, 4 * c), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    stream = _lib.stream_ptr(x)
-    _lib.check(getattr(lib, f"vs_cnx_block_a_{sfx}")(
-        xpad.data_ptr(), p["dw"].data_ptr(), p["dwb"].data_ptr(), p["lnw"].data_ptr(),
-        p["lnb"].data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(), hmid.data_ptr(),
-        part.data_ptr(), b, h, w, c, tile, stream), "vs_cnx_block_a")
-    _lib.check(getattr(lib, f"vs_cnx_block_b_{sfx}")(
-        hmid.data_ptr(), part.data_ptr(), p["gamma"].data_ptr(), p["beta"].data_ptr(),
-        p["w2"].data_ptr(), p["b2"].data_ptr(), xpad.data_ptr(), out.data_ptr(),
-        b, h, w, c, tile, stream), "vs_cnx_block_b")
-    return out
 
 
 def convnext_block_fused(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -334,29 +298,45 @@ def convnext_block_fused(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def _launch_group(x: torch.Tensor, params_list) -> torch.Tensor:
+    """K3: one cooperative launch over K2's buffers, the intermediates in
+    (B, H, W, C) bf16 ping-pong buffers; no padded copy."""
     _check("convnext_blocks_fused", x, params_list)
     k = len(params_list)
     if not 1 <= k <= MAX_GROUP:
         raise ValueError(f"convnext_blocks_fused kernel takes 1 to {MAX_GROUP} blocks, got {k}")
     b, h, w, c = x.shape
-    tile = _kernel_tile(h, w, c)
-    xpad = F.pad(x, (0, 0, 3, 3, 3, 3)).contiguous()
-    # the intermediates' ping-pong buffers; the kernel writes only inside
-    # their 3-pixel zero halo
-    pp = torch.zeros((min(k - 1, 2), b, h + 6, w + 6, c), dtype=torch.bfloat16,
-                     device=x.device)
-    hmid = torch.empty((b, h * w, 4 * c), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((b, h * w // tile, 4 * c), dtype=torch.float32, device=x.device)
+    bm = _check_shape(b, h, w, c)
+    if x.data_ptr() % 16:
+        raise ValueError("convnext_blocks_fused kernel takes x at a 16-byte aligned address")
+    hw, dev = h * w, x.device
+    pp = torch.empty((min(k - 1, 2), b, h, w, c), dtype=torch.bfloat16, device=dev)
+    a = torch.empty((b * hw, c), dtype=torch.bfloat16, device=dev)
+    hid = torch.empty((b * hw, 4 * c), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((b, -(-hw // bm), 4 * c), dtype=torch.float32, device=dev)
+    gn = torch.empty((b, 4 * c), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     ptrs = (ctypes.c_void_p * (10 * k))(*[p[n].data_ptr() for p in params_list
                                           for n in _PARAM_ORDER])
     sfx = "f32" if x.dtype == torch.float32 else "bf16"
     _lib.check(getattr(_lib.library(), f"vs_cnx_group_{sfx}")(
-        xpad.data_ptr(), pp[0].data_ptr() if k > 1 else None,
-        pp[1].data_ptr() if k > 2 else None, out.data_ptr(), hmid.data_ptr(),
-        part.data_ptr(), ctypes.addressof(ptrs), k, b, h, w, c, tile, _lib.stream_ptr(x)),
+        x.data_ptr(), out.data_ptr(), pp[0].data_ptr() if k > 1 else None,
+        pp[1].data_ptr() if k > 2 else None, a.data_ptr(), hid.data_ptr(), part.data_ptr(),
+        gn.data_ptr(), ctypes.addressof(ptrs), k, b, h, w, c, bm, _lib.stream_ptr(x)),
         "vs_cnx_group")
     return out
+
+
+def group_occupancy(x: torch.Tensor) -> dict:
+    """What the occupancy query reports for the K3 instance that x's shape
+    and dtype launch: blocks an SM, the grid and the shared memory of a
+    block. Runs nothing."""
+    b, h, w, c = x.shape
+    bm = _check_shape(b, h, w, c)
+    info = (ctypes.c_int * 3)()
+    sfx = "f32" if x.dtype == torch.float32 else "bf16"
+    _lib.check(getattr(_lib.library(), f"vs_cnx_group_{sfx}_info")(b, h, w, c, bm, info),
+               "vs_cnx_group_info")
+    return {"blocks_per_sm": info[0], "grid": info[1], "smem_bytes": info[2]}
 
 
 def convnext_blocks_fused(x: torch.Tensor, params_list) -> torch.Tensor:

@@ -1,15 +1,16 @@
 """K8: what inside the ConvNeXt block kernel costs the most on the card?
 (perf tool, not a serving path)
 
-Counterpart of ``videoseal_tpu/kernels/convnext_probe.py``. Its variants are
-instances of K2's part (a) template (``csrc/convnext_block.cuh``, entry in
-``csrc/convnext_probe.cu``): the
-depthwise form (dw_plain's "taps", "shift", "perdy", "bf16"), the activation
-after pw1 (ACTIVATIONS' "none", "erf", "sigmoid", "tanh") and a
-depthwise-only flag; the full-block variants run K2's part (b) after it.
-The TPU's variant names are kept. "block_gelu" here is the erf GELU, the
-model's (the TPU probe's block_gelu called the tanh form), and
-"production_block" is K2's own part (a) and (b) on the probe's input.
+Counterpart of ``videoseal_tpu/kernels/convnext_probe.py``. Its variants
+run K2's four parts (``csrc/convnext_dwln.cuh``, ``csrc/convnext_pw.cuh``;
+entry in ``csrc/convnext_probe.cu``) with their switches set: the depthwise
+form (dw_plain's "taps", "shift", "perdy", "bf16"), the activation after pw1
+(ACTIVATIONS' "none", "erf", "sigmoid", "tanh") and a depthwise-only flag;
+the full-block variants run dwln, pw1, grn_stats and pw2 on K2's tile
+shapes. The TPU's variant names are kept. "block_gelu" here is the erf
+GELU, the model's (the TPU probe's block_gelu called the tanh form), and
+"production_block" is K2's own block on the probe's input: on a zero halo,
+K2 bit for bit.
 
 The input is a bf16 (B, H+6, W+6, C) tensor whose 3-pixel halo is random
 data, as on the TPU; the depthwise-only variants return the bf16 sum without
@@ -26,8 +27,7 @@ import sys
 import torch
 
 from . import _lib
-from .convnext_block import (_PARAM_ORDER, _check, _kernel_tile, block_plain_padded,
-                             dw_plain)
+from .convnext_block import _PARAM_ORDER, _check, _check_shape, block_plain_padded, dw_plain
 
 # variant -> (depthwise form, activation, depthwise only); the order is the
 # variant index of csrc vs_cnx_probe
@@ -65,17 +65,21 @@ def _launch(xpad: torch.Tensor, p: dict, variant: str) -> torch.Tensor:
     _check("convnext_probe", xpad, [p], (torch.bfloat16,))
     b, hp, wp, c = xpad.shape
     h, w = hp - 6, wp - 6
-    tile = _kernel_tile(h, w, c)
-    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=xpad.device)
-    hmid = part = None
+    bm = _check_shape(b, h, w, c)
+    if xpad.data_ptr() % 16:
+        raise ValueError("convnext_probe kernel takes xpad at a 16-byte aligned address")
+    dev, hw = xpad.device, h * w
+    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=dev)
+    bufs = [None] * 4   # a, hid, part, gn: K2's buffers, unused by the depthwise-only
     if not dw_only:
-        hmid = torch.empty((b, h * w, 4 * c), dtype=torch.bfloat16, device=xpad.device)
-        part = torch.empty((b, h * w // tile, 4 * c), dtype=torch.float32, device=xpad.device)
+        bufs = [torch.empty((b * hw, c), dtype=torch.bfloat16, device=dev),
+                torch.empty((b * hw, 4 * c), dtype=torch.bfloat16, device=dev),
+                torch.empty((b, -(-hw // bm), 4 * c), dtype=torch.float32, device=dev),
+                torch.empty((b, 4 * c), dtype=torch.float32, device=dev)]
     _lib.check(_lib.library().vs_cnx_probe(
         xpad.data_ptr(), *[p[n].data_ptr() for n in _PARAM_ORDER],
-        None if dw_only else hmid.data_ptr(), None if dw_only else part.data_ptr(),
-        out.data_ptr(), b, h, w, c, tile, list(VARIANTS).index(variant),
-        _lib.stream_ptr(xpad)), "vs_cnx_probe")
+        *[None if t is None else t.data_ptr() for t in bufs], out.data_ptr(), b, h, w, c, bm,
+        list(VARIANTS).index(variant), _lib.stream_ptr(xpad)), "vs_cnx_probe")
     return out
 
 
