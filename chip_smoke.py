@@ -17,7 +17,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      version at the four stage shapes, B=32, and at 3x12x20x96 and
      3x12x20x192 (masked last M tiles), bf16 and f32; per stage in bf16
      times the block twice, each part with its bound, and cuBLAS on the two
-     products' shapes (a yardstick the port never calls);
+     products' shapes (a yardstick the port never calls); then at
+     chunkyseal's four stage shapes, B=4 (odd H*W, widths padded to 16),
+     and at 3x7x9x40 and 3x5x7x22, bf16 and f32, the pad channels exactly
+     0; each chunkyseal stage in bf16 timed twice with its bound and its
+     parts, and the 36 blocks of one frame beside their bound;
   5. the planar slice: videoseal_1.0 at random init (seed 0) in bf16,
      embed_detect_planar over 128 planar 1080p frames in the scored and the
      card-default modes; checks shapes, launch counts, the scaling_w=0
@@ -34,9 +38,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      result, embed of 32 float frames as images; checks shapes, launch
      counts, the scaling_w=0 identity, CPU-vs-card agreement on 4 frames;
      times embed+detect;
-  8. the K6 path at full width: chunkyseal at random init in bf16, embed of
-     8 float 1080p frames as images; checks the K6 launch, shapes and the
-     scaling_w=0 identity (chunkyseal's detect is not run);
+  8. chunkyseal at full width, random init in bf16: embed of 8 float 1080p
+     frames as images (the K6 path; the K6 launch, shapes, the scaling_w=0
+     identity), then detect and extract_message of the result (K2 at the
+     padded widths, 36 launches a chunk; preds (8, 1025), finite; the
+     logits against the CPU's on 2 frames); times embed and detect;
   9. K3 (k ConvNeXt blocks in one launch, on K2's parts) against its plain
      version and, bit for bit, against k K2 launches at the four stage
      shapes, B=32, and at 3x12x20x96 (masked last M tiles), k = 2, 3, 4,
@@ -55,7 +61,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      on the sweep's inputs and shapes (K7 at F=128, 1080p; K8 at
      128x64x64x96 and 128x32x32x192), K8's production_block on a zero
      halo against K2, K7's production variant against K5 again, and the
-     plain versions of the two cases the kernels line reports timed.
+     plain versions of the two cases the kernels line reports timed;
+ 12. pixelseal at random init (seed 0) in bf16: NHWC embed of 32 u8 1080p
+     frames as a video and detect (K4 1, K2 18), the scored planar mode over
+     the same frames (K1 1, K2 18), the scaling_w=0 identity on both, card
+     against CPU on 2 frames; timed;
+ 13. videoseal_0.0 at random init (seed 0) in bf16: NHWC embed of 32 u8
+     1080p frames as a video, detect and extract_message (the SAM ViT; no
+     kernel on the path, every count 0; preds (32, 97)), the scaling_w=0
+     identity, card against CPU on 2 frames in f32 and in bf16; timed.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -88,8 +102,13 @@ from videoseal_tpu_torch.utils.timing import cuda_ms  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 H, W, F_SLICE = 1080, 1920, 128
+F_CARDS = 32   # frames of the pixelseal and videoseal_0.0 phases: one chunk
 STAGES = [(64, 64, 96), (32, 32, 192), (16, 16, 384), (8, 8, 768)]
 DEPTHS = (3, 3, 9, 3)
+# chunkyseal's stages at 256 px (stem 4x4 at stride 2, VALID; dims 128..1024
+# scaled by sqrt(1024 / 128)): odd H*W at all four, C % 16 != 0 at three
+CHUNKY_STAGES = [(127, 127, 362), (63, 63, 724), (31, 31, 1448), (15, 15, 2896)]
+CHUNKY_DEPTHS = (3, 3, 27, 3)
 # K1: f32 sums in another order can flip a u8 rounding that lands on .5
 K1_U8_MAX, K1_U8_SHARE, K1_DET_ATOL = 1, 1e-3, 2e-3
 # K2: same bf16 rounding points as the plain version; f32 sums in another
@@ -101,6 +120,18 @@ K2_ATOL, K2_RTOL = 5e-2, 2e-2
 # 7.8e-3 (planar scored), 3.9e-3 (planar default, NHWC) with the new K2
 SLICE_U8_MAX, SLICE_U8_SHARE, SLICE_LOGIT_ATOL = 2, 1e-2, 2e-2
 SLICE_FLOAT_ATOL = SLICE_U8_MAX / 255.0
+# chunkyseal's detect, CPU vs card, both bf16: 36 blocks (twice
+# videoseal_1.0's 18) at widths up to 2896, the same bf16 rounding points
+# with sums in another order
+CHUNKY_LOGIT_ATOL = 5e-2
+# videoseal_0.0, CPU vs card: no JND and scaling_w 1, so the u8 frames carry
+# 255 x the prediction and one bf16 ulp of it (2^-8 of a value near 1) moves
+# them by a unit: the prediction (in [-1, 1]) and the logits are compared
+# instead. In f32 (TF32 off) only the sums' order differs: V0_F32_ATOL. In
+# bf16 the deep UNet (8 bottleneck blocks at 144 channels, RMS norms in
+# bf16) drifts by bf16 ulps on the two devices' conv algorithms: measured
+# 5.27e-2 at most (13 ulps) on 2 frames; the mean stays within a few ulps
+V0_F32_ATOL, V0_PRED_ATOL, V0_PRED_MEAN, V0_LOGIT_ATOL = 1e-4, 0.1, 1e-2, 5e-2
 # grouped route, card vs CPU on 4 frames: the same bf16 forward with conv and
 # matmul sums in another order; measured 3.9e-3 on logits up to ~0.7. On the
 # card the grouped route equals the single one: K3 runs K2's parts on K2's
@@ -356,7 +387,8 @@ def phase_k2(dev) -> dict:
     """K2 against its plain version at the four stage shapes (B=32) and two
     ragged ones, bf16 and f32; per stage in bf16: the block timed twice, each
     part with its bound, and cuBLAS on the two products' shapes as a
-    yardstick."""
+    yardstick. Then chunkyseal's four stage shapes (B=4) and two small ones
+    with odd H*W and C, 4C not multiples of 16, at K2's padded width."""
     from videoseal_tpu_torch.kernels import convnext_block as cb
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -416,8 +448,80 @@ def phase_k2(dev) -> dict:
     log(f"[K2] 18 blocks of one chunk of 32 frames, bf16: kernel {chunk['ms']:.3f} ms, plain "
         f"{chunk['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), kernel at "
         f"{bound_ms / chunk['ms']:.1%} of it")
-    return {"checks": rec, "stages": stages, "max_abs_err": worst, **chunk,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    chunky, chunky_worst = phase_k2_padded(dev, rec)
+    return {"checks": rec, "stages": stages, "max_abs_err": max(worst, chunky_worst), **chunk,
+            "bound_ms": bound_ms, "bound_by": bound_by, "chunky": chunky}
+
+
+def phase_k2_padded(dev, rec: dict) -> tuple[dict, float]:
+    """K2 at chunkyseal's four stage shapes (B=4) and at 3x7x9x40 (4C = 160)
+    and 3x5x7x22 (4C = 88), odd H*W each, bf16 and f32: x at the padded
+    width with zero pad channels (as the extractor's route pads it), held
+    against the plain version on the true channels with K2's tolerance, the
+    pad channels exactly 0. Each chunkyseal stage in bf16 is timed twice with
+    its bound (the true widths' work); the 36 blocks of one frame are summed
+    beside their bound."""
+    import torch.nn.functional as F
+    from videoseal_tpu_torch.kernels import convnext_block as cb
+    worst, frame = 0.0, {"ms": 0.0, "plain_ms": 0.0}
+    nbytes = f32_ops = bf16_ops = 0.0
+    stages = []
+    cases = [(4, h, w, c) for h, w, c in CHUNKY_STAGES] + [(3, 7, 9, 40), (3, 5, 7, 22)]
+    for i, (b, h, w, c) in enumerate(cases):
+        staged = i < len(CHUNKY_STAGES)
+        cp = cb.padded_width(c)
+        for dtype in (torch.bfloat16, torch.float32):
+            p = cb.kernel_params(_random_block(c, 50 + i, dev, dtype))
+            g = torch.Generator(device=dev).manual_seed(60 + i)
+            x = F.pad(torch.randn((b, h, w, c), generator=g, device=dev).to(dtype),
+                      (0, cp - c)).contiguous()
+            a = cb.convnext_block_fused(x, p).float()
+            ref = cb.convnext_block_plain(x, p).float()
+            torch.cuda.synchronize()
+            err = (a - ref)[..., :c].abs()
+            pads_zero = not bool(a[..., c:].any())
+            key = f"{b}x{h}x{w}x{c}(padded {cp}),{str(dtype)[6:]}"
+            log(f"[K2] {key}: max abs err {float(err.max()):.3e}, mean {float(err.mean()):.3e}, "
+                f"pad channels zero {pads_zero}")
+            if (not bool(torch.isfinite(a).all()) or not pads_zero
+                    or bool((err > K2_ATOL + K2_RTOL * ref[..., :c].abs()).any())):
+                raise AssertionError(f"K2 disagrees with its plain version at {key}")
+            rec[key] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean())}
+            worst = max(worst, float(err.max()))
+            if not staged or dtype != torch.bfloat16:
+                continue
+            runs = [cuda_ms(lambda: cb.convnext_block_fused(x, p), reps=10) for _ in range(2)]
+            pms = cuda_ms(lambda: cb.convnext_block_plain(x, p))
+            nb, bo, fo = block_cost(h, w, c, frames=b)
+            sb = bound(nb, f32_ops=fo, bf16_ops=bo)
+            ms = sum(runs) / 2
+            # each part on the true widths' work, as phase 4's stages
+            calls, buf = cb.k2_parts(x, p)
+            costs = part_costs(b, h, w, c, x.element_size(), buf["part"].shape[1])
+            parts = {}
+            for name, call in calls:
+                pb = bound(costs[name][0], f32_ops=costs[name][1], bf16_ops=costs[name][2])
+                parts[name] = {"ms": cuda_ms(call, reps=10), "bound_ms": pb[0], "bound_by": pb[1]}
+            del calls, buf
+            log(f"[K2] B={b} {h}x{w}x{c} (padded {cp}) bf16: {runs} ms, plain {pms:.3f} ms, bound "
+                f"{sb[0]:.4f} ms ({sb[1]}), kernel at {sb[0] / ms:.1%} of it; " + ", ".join(
+                    f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['bound_by']})"
+                    for n, r in parts.items()))
+            rec[key].update(ms=ms, runs=runs, plain_ms=pms, bound_ms=sb[0], bound_by=sb[1],
+                            parts=parts)
+            stages.append({"shape": [b, h, w, c], "padded": cp, "blocks": CHUNKY_DEPTHS[i],
+                           "ms": ms, "plain_ms": pms, "bound_ms": sb[0], "bound_by": sb[1]})
+            d = CHUNKY_DEPTHS[i] / b   # the stage's blocks over one frame
+            frame["ms"] += d * ms
+            frame["plain_ms"] += d * pms
+            nbytes, bf16_ops, f32_ops = nbytes + d * nb, bf16_ops + d * bo, f32_ops + d * fo
+        del p, x, a, ref
+        torch.cuda.empty_cache()
+    fb = bound(nbytes, f32_ops=f32_ops, bf16_ops=bf16_ops)
+    log(f"[K2] chunkyseal's 36 blocks over one frame (B=4 launches), bf16: kernel "
+        f"{frame['ms']:.3f} ms, plain {frame['plain_ms']:.3f} ms, bound {fb[0]:.3f} ms "
+        f"({fb[1]}), kernel at {fb[0] / frame['ms']:.1%} of it")
+    return {"stages": stages, **frame, "bound_ms": fb[0], "bound_by": fb[1]}, worst
 
 
 def phase_slice(dev, smi: str) -> dict:
@@ -689,8 +793,20 @@ def phase_nhwc(dev, smi: str) -> dict:
     return rec
 
 
-def phase_chunky(dev) -> dict:
-    """chunkyseal's float embed at full width: the K6 path."""
+def cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A CPU copy of a model's module, without the kernel parameters its
+    blocks cached on the card (the CPU builds its own)."""
+    import copy
+    out = copy.deepcopy(module).cpu()
+    for m in out.modules():
+        m.__dict__.pop("_kernel_params", None)
+    return out
+
+
+def phase_chunky(dev, smi: str) -> dict:
+    """chunkyseal at full width: the float embed (the K6 path), then detect
+    and extract_message of the watermarked frames (K2 at the padded widths,
+    36 launches a chunk), the logits against the CPU's on 2 frames."""
     import videoseal_tpu_torch as vt
 
     t0 = time.perf_counter()
@@ -718,9 +834,172 @@ def phase_chunky(dev) -> dict:
         raise AssertionError("scaling_w=0 is not the identity on the K6 path")
     rec["ms"] = cuda_ms(lambda: model.embed(imgs))
     log(f"[chunky] embed of 8 float 1080p frames: {rec['ms']:.2f} ms")
+
+    from videoseal_tpu_torch.models.videoseal import detect_pipeline
+    blocks = sum(len(stage) for stage in model.extractor.convnext.stages)   # 36
+    reset_counts()
+    preds = model.detect(wm)["preds"]
+    bits = model.extract_message(wm)
+    got = check_counts("chunky detect", {"K2": 2 * blocks * math.ceil(8 / model.cfg.chunk_size)})
+    rec["launches"] = {k: rec["launches"][k] + got[k] for k in got}
+    log(f"[chunky] detect: preds {tuple(preds.shape)}, max |logit| "
+        f"{float(preds.abs().max()):.3f}, bits {tuple(bits.shape)}")
+    if (tuple(preds.shape) != (8, 1 + model.nbits) or not bool(torch.isfinite(preds).all())
+            or tuple(bits.shape) != (1, model.nbits)):
+        raise AssertionError("chunkyseal detect output has the wrong shape or is not finite")
+    cpu_ext = cpu_copy(model.extractor)
+    c2 = detect_pipeline(cpu_ext, model.cfg, wm[:2].cpu())
+    ld = float((preds[:2].cpu() - c2).abs().max())
+    del cpu_ext
+    log(f"[chunky] detect, 2 frames, card vs CPU: logits max abs diff {ld:.3e} (tolerance "
+        f"{CHUNKY_LOGIT_ATOL})")
+    if ld > CHUNKY_LOGIT_ATOL:
+        raise AssertionError("card and CPU disagree on chunkyseal's logits")
+    rec["detect_cpu_vs_card"] = ld
+    rec["detect_ms"] = cuda_ms(lambda: model.detect(wm))
+    log(f"[chunky] detect of 8 1080p frames: {rec['detect_ms']:.2f} ms ({smi})")
     del model
     torch.cuda.empty_cache()
     return rec
+
+def phase_pixelseal(dev, smi: str) -> dict:
+    """pixelseal at random init (seed 0) in bf16: the NHWC embed of 32 u8
+    1080p frames as a video and detect (K4 1, K2 18), the scored planar mode
+    over the same frames (K1 1, K2 18), the scaling_w=0 identity on both,
+    card against CPU on 2 frames; timed."""
+    import videoseal_tpu_torch as vt
+
+    f = F_CARDS
+    model = vt.load("pixelseal", device=dev, seed=0).with_dtype("bfloat16")
+    g = torch.Generator(device=dev).manual_seed(14)
+    frames = torch.randint(0, 256, (f, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
+    msgs = model.get_random_msg(1)
+    blocks = sum(len(stage) for stage in model.extractor.convnext.stages)   # 18
+    reset_counts()
+    vid = model.embed(frames, msgs=msgs, is_video=True)
+    preds = model.detect(vid["imgs_w"])["preds"]
+    rec = {"launches": check_counts("pixelseal nhwc", {"K4": 1, "K2": blocks})}
+    planar = vt.pack_planar(frames)
+    scored = dict(lowres_attenuation=True, fused_detect=True)
+    reset_counts()
+    pout = model.embed_detect_planar(planar, H, W, msgs=msgs, **scored)
+    got = check_counts("pixelseal planar", {"K1": 1, "K2": blocks})
+    rec["launches"] = {k: rec["launches"][k] + got[k] for k in got}
+    wm, pw, pwm, pp = vid["imgs_w"], vid["preds_w"], pout["imgs_w"], pout["preds"]
+    log(f"[pixelseal] video: imgs_w {tuple(wm.shape)} {wm.dtype}, preds_w {tuple(pw.shape)}, "
+        f"preds {tuple(preds.shape)}; planar: imgs_w {tuple(pwm.shape)}, preds {tuple(pp.shape)}")
+    if (tuple(wm.shape) != (f, H, W, 3) or wm.dtype != torch.uint8
+            or tuple(pw.shape) != (f, H, W, 1) or tuple(preds.shape) != (f, 1 + model.nbits)
+            or not bool(torch.isfinite(preds).all())
+            or tuple(pwm.shape[:2]) != (f, 3) or pwm.shape[2] < H or pwm.shape[3] < W
+            or tuple(pp.shape) != (f, 1 + model.nbits) or not bool(torch.isfinite(pp).all())
+            or torch.equal(wm, frames)):
+        raise AssertionError("pixelseal output has the wrong shape, is not finite or is "
+                             "unchanged")
+    sw = model.scaling_w
+    model.scaling_w = 0.0
+    same = torch.equal(model.embed(frames, msgs=msgs, is_video=True)["imgs_w"], frames)
+    same_p = torch.equal(model.embed_detect_planar(planar, H, W, msgs=msgs, **scored)[
+        "imgs_w"][:, :, :H, :W], planar[:, :, 28:28 + H, 128:128 + W])
+    model.scaling_w = sw
+    log(f"[pixelseal] scaling_w=0: u8 video unchanged {same}, planar unchanged {same_p}")
+    if not (same and same_p):
+        raise AssertionError("scaling_w=0 is not the identity on pixelseal's paths")
+    cpu = vt.load("pixelseal", device="cpu", seed=0).with_dtype("bfloat16")
+    g2 = model.embed(frames[:2], msgs=msgs, is_video=True)["imgs_w"]
+    c2 = cpu.embed(frames[:2].cpu(), msgs=msgs.cpu(), is_video=True)["imgs_w"]
+    d = (g2.cpu().int() - c2.int()).abs()
+    ld = float((model.detect(g2)["preds"].cpu() - cpu.detect(g2.cpu())["preds"]).abs().max())
+    share = float((d > 0).float().mean())
+    del cpu
+    log(f"[pixelseal] F=2, card vs CPU: u8 max diff {int(d.max())}, share differing "
+        f"{share:.2e}, logits max abs diff {ld:.3e}")
+    if int(d.max()) > SLICE_U8_MAX or share > SLICE_U8_SHARE or ld > SLICE_LOGIT_ATOL:
+        raise AssertionError("card and CPU disagree on pixelseal")
+    rec["cpu_vs_card"] = {"u8_max": int(d.max()), "u8_share": share, "logit_max": ld}
+    rec["nhwc_ms"] = cuda_ms(lambda: model.detect(
+        model.embed(frames, msgs=msgs, is_video=True)["imgs_w"]))
+    rec["planar_ms"] = cuda_ms(lambda: model.embed_detect_planar(planar, H, W, msgs=msgs,
+                                                                 **scored))
+    log(f"[pixelseal] {f} u8 1080p frames: NHWC embed+detect {rec['nhwc_ms']:.2f} ms, planar "
+        f"scored {rec['planar_ms']:.2f} ms ({smi})")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_v0(dev, smi: str) -> dict:
+    """videoseal_0.0 at random init (seed 0) in bf16: the NHWC embed of 32 u8
+    1080p frames as a video (no JND: the 3-channel prediction upsampled and
+    blended at scaling_w 1), detect and extract_message through the SAM ViT;
+    no kernel of the port lies on this path (nor a Pallas kernel on the JAX
+    package's), so every count reads 0; the scaling_w=0 identity, card
+    against CPU on 2 frames; timed."""
+    import videoseal_tpu_torch as vt
+
+    f = F_CARDS
+    model = vt.load("videoseal_0.0", device=dev, seed=0).with_dtype("bfloat16")
+    g = torch.Generator(device=dev).manual_seed(15)
+    frames = torch.randint(0, 256, (f, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
+    msgs = model.get_random_msg(1)
+    reset_counts()
+    vid = model.embed(frames, msgs=msgs, is_video=True)
+    preds = model.detect(vid["imgs_w"])["preds"]
+    bits = model.extract_message(vid["imgs_w"])
+    rec = {"launches": check_counts("videoseal_0.0", {})}
+    wm, pw = vid["imgs_w"], vid["preds_w"]
+    log(f"[v0] video: imgs_w {tuple(wm.shape)} {wm.dtype}, preds_w {tuple(pw.shape)}, preds "
+        f"{tuple(preds.shape)}, max |logit| {float(preds.abs().max()):.3f}, bits "
+        f"{tuple(bits.shape)}")
+    if (tuple(wm.shape) != (f, H, W, 3) or wm.dtype != torch.uint8
+            or tuple(pw.shape) != (f, H, W, 3) or tuple(preds.shape) != (f, 97)
+            or not bool(torch.isfinite(preds).all()) or tuple(bits.shape) != (1, 96)
+            or torch.equal(wm, frames)):
+        raise AssertionError("videoseal_0.0 output has the wrong shape, is not finite or is "
+                             "unchanged")
+    sw = model.scaling_w
+    model.scaling_w = 0.0
+    same = torch.equal(model.embed(frames, msgs=msgs, is_video=True)["imgs_w"], frames)
+    model.scaling_w = sw
+    log(f"[v0] scaling_w=0: u8 video unchanged {same}")
+    if not same:
+        raise AssertionError("scaling_w=0 is not the identity on videoseal_0.0's path")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu32 = vt.load("videoseal_0.0", device="cpu", seed=0)
+    gpu32 = vt.load("videoseal_0.0", device=dev, seed=0)
+    d32 = float((gpu32.embed(frames[:2], msgs=msgs, is_video=True)["preds_w"].cpu()
+                 - cpu32.embed(frames[:2].cpu(), msgs=msgs.cpu(), is_video=True)["preds_w"])
+                .abs().max())
+    l32 = float((gpu32.detect(wm[:2])["preds"].cpu() - cpu32.detect(wm[:2].cpu())["preds"])
+                .abs().max())
+    cpu = cpu32.with_dtype("bfloat16")
+    del cpu32, gpu32
+    gp = model.embed(frames[:2], msgs=msgs, is_video=True)["preds_w"]
+    cp = cpu.embed(frames[:2].cpu(), msgs=msgs.cpu(), is_video=True)["preds_w"]
+    diff = (gp.cpu() - cp).abs()
+    pd, pm = float(diff.max()), float(diff.mean())
+    ld = float((model.detect(wm[:2])["preds"].cpu() - cpu.detect(wm[:2].cpu())["preds"])
+               .abs().max())
+    del cpu, diff
+    log(f"[v0] F=2, card vs CPU in f32: prediction max abs diff {d32:.3e}, logits {l32:.3e} "
+        f"(tolerance {V0_F32_ATOL}); in bf16: prediction max abs diff {pd:.3e} (tolerance "
+        f"{V0_PRED_ATOL}), mean {pm:.3e} (tolerance {V0_PRED_MEAN}), logits max abs diff "
+        f"{ld:.3e} (tolerance {V0_LOGIT_ATOL})")
+    if (d32 > V0_F32_ATOL or l32 > V0_F32_ATOL or pd > V0_PRED_ATOL or pm > V0_PRED_MEAN
+            or ld > V0_LOGIT_ATOL):
+        raise AssertionError("card and CPU disagree on videoseal_0.0")
+    rec["cpu_vs_card"] = {"f32_pred_max": d32, "f32_logit_max": l32, "pred_max": pd,
+                          "pred_mean": pm, "logit_max": ld}
+    rec["ms"] = cuda_ms(lambda: model.detect(
+        model.embed(frames, msgs=msgs, is_video=True)["imgs_w"]))
+    rec["detect_ms"] = cuda_ms(lambda: model.detect(wm))
+    log(f"[v0] {f} u8 1080p frames: embed+detect {rec['ms']:.2f} ms, detect alone "
+        f"{rec['detect_ms']:.2f} ms ({smi})")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
 
 def phase_k3(dev) -> dict:
     """K3 against its plain version and, bit for bit, against k K2 launches
@@ -1085,15 +1364,18 @@ def main() -> int:
     rec["slice"] = phase_slice(dev, smi)
     rec["jnd"] = phase_jnd(dev)
     rec["nhwc"] = phase_nhwc(dev, smi)
-    rec["chunky"] = phase_chunky(dev)
+    rec["chunky"] = phase_chunky(dev, smi)
     rec["K3"] = phase_k3(dev)
     rec["grouped"] = phase_grouped(dev, smi)
     rec["probes"] = phase_probes(dev)
+    rec["pixelseal"] = phase_pixelseal(dev, smi)
+    rec["v0"] = phase_v0(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
-    paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "grouped", "probes")]
+    paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
+                                            "grouped", "probes")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

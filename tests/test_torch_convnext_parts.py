@@ -94,19 +94,24 @@ def test_grn_stats_from_tile_partials(shape, bm):
                                grn_stats_plain(sums, p["gamma"]).numpy(), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 8, 24), (1, 8, 8, 8), (1, 5, 5, 16), (2, 3, 6, 32)])
+@pytest.mark.parametrize("shape", [(1, 8, 8, 24), (1, 8, 8, 8), (1, 5, 5, 20), (2, 3, 6, 40)])
 def test_shape_check_raises(shape):
-    """C % 16 != 0, or H*W % 16 != 0."""
+    """A width C % 16 != 0: the kernels take it only padded (block_params
+    pads the parameters, the caller the activation), at any H*W."""
     with pytest.raises(ValueError):
         _check_shape(*shape)
 
 
 @pytest.mark.parametrize("shape,want", [
     ((32, 64, 64, 96), 128), ((32, 8, 8, 768), 64), ((1, 8, 8, 784), 64),
-    ((2, 16, 16, 1536), 128), ((3, 12, 20, 96), 128), ((2, 4, 4, 16), 64)])
+    ((2, 16, 16, 1536), 128), ((3, 12, 20, 96), 128), ((2, 4, 4, 16), 64),
+    ((1, 5, 5, 16), 64), ((2, 3, 6, 32), 64), ((4, 127, 127, 368), 128),
+    ((4, 63, 63, 736), 128), ((4, 31, 31, 1456), 128), ((4, 15, 15, 2896), 128)])
 def test_shape_check_takes(shape, want):
     """The extractor's stages, C > 768 (no longer capped), a ragged frame,
-    a frame of 16 pixels: the GEMMs' frame-local M tile."""
+    a frame of 16 pixels, frames whose H*W is not a multiple of 16, and
+    chunkyseal's four stages at their padded widths: the GEMMs' frame-local
+    M tile."""
     assert _check_shape(*shape) == want
 
 
@@ -140,7 +145,9 @@ def test_kernel_params_rebuilt_after_with_dtype():
     blk16 = m16.extractor.convnext.stages[0][0]
     q = kernel_params(blk16)
     assert q is not p and kernel_params(blk16) is q
-    assert torch.equal(q["dw"], blk16.dwconv.weight.float().reshape(-1, 49).t())
+    # stage 0 of the tiny card is 8 wide: K2's layout pads it to 16 channels
+    dw = blk16.dwconv.weight.float().reshape(-1, 49).t()
+    assert torch.equal(q["dw"], F.pad(dw, (0, 16 - dw.shape[1]))) and q["c"] == 8
     assert kernel_params(blk) is p    # the original keeps its own
 
 

@@ -46,8 +46,32 @@ def tiny_card(img_size: int = 128, step: int = 2, chunk: int = 4, out_channels: 
     }
 
 
+def tiny_card_v0(img_size: int = 64, step: int = 2, chunk: int = 4) -> dict:
+    """videoseal_0.0's layout at narrow widths: an RGB unet_small2 with SiLU
+    and RMS norms, the SAM ViT extractor (depth 2, embed_dim 48, 2 heads,
+    window 4, global attention at block 1), no JND, scaling_w 1."""
+    return {
+        "args": {"attenuation": None, "nbits": NBITS, "hidden_size_multiplier": 2,
+                 "img_size_proc": img_size, "blending_method": "additive",
+                 "scaling_w": 1.0, "scaling_i": 1.0, "videoseal_chunk_size": chunk,
+                 "videoseal_step_size": step, "video_mode": "repeat"},
+        "embedder": {"model": "unet_small2", "params": {
+            "msg_processor": {"msg_processor_type": "binary+concat"},
+            "unet": {"in_channels": 3, "out_channels": 3, "z_channels": 4, "num_blocks": 1,
+                     "activation": "silu", "normalization": "rms",
+                     "z_channels_mults": [1, 2], "last_tanh": True}}},
+        "extractor": {"model": "sam_small", "params": {
+            "encoder": {"embed_dim": 48, "out_chans": 48, "depth": 2, "num_heads": 2,
+                        "patch_size": 16, "global_attn_indexes": [1], "window_size": 4,
+                        "mlp_ratio": 4, "qkv_bias": True, "use_rel_pos": True},
+            "pixel_decoder": {"pixelwise": False, "upscale_stages": [1], "embed_dim": 48,
+                              "sigmoid_output": False, "upscale_type": "bilinear"}}},
+    }
+
+
 def _randomize(tree, rng, path=""):
-    """Numpy copy of a variables tree with BN stats/affine and GRN randomised."""
+    """Numpy copy of a variables tree with BN stats/affine, GRN, RMS norm
+    gains and the ViT's position tables randomised."""
     out = {}
     for k, v in tree.items():
         p = f"{path}/{k}"
@@ -55,9 +79,10 @@ def _randomize(tree, rng, path=""):
             out[k] = _randomize(dict(v), rng, p)
             continue
         a = np.asarray(v, np.float32).copy()
-        if p.endswith("/bn/mean") or "/grn/" in p or p.endswith("/bn/bias"):
+        if (p.endswith("/bn/mean") or "/grn/" in p or p.endswith("/bn/bias")
+                or "/rel_pos_" in p or p.endswith("/pos_embed")):
             a = rng.normal(0.0, 0.1, a.shape).astype(np.float32)
-        elif p.endswith("/bn/var") or p.endswith("/bn/scale"):
+        elif p.endswith("/bn/var") or p.endswith("/bn/scale") or p.endswith("/rms/gamma"):
             a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
         out[k] = a
     return out

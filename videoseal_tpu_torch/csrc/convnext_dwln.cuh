@@ -72,13 +72,19 @@ __device__ __forceinline__ float bf16_tap(float s, float x, float w) {
 // floats of shared memory (the row's depthwise output + bias). x: (B, H, W,
 // C) in T with a zero halo; PAD: (B, H+6, W+6, C) whose halo is read.
 // DWONLY: a is the (B, H, W, C) bf16 depthwise sum without its bias.
-template <typename T, int DW = kDwPerDy, bool PAD = false, bool DWONLY = false>
+// TRUEC: C is a width padded with zero channels (zero taps, bias and LN
+// affine) past the true width Ct, and the LN's mean and variance are taken
+// over the Ct true channels; the pads stay 0. Without it Ct is not read and
+// the instance compiles as it did before the pads.
+template <typename T, int DW = kDwPerDy, bool PAD = false, bool DWONLY = false,
+          bool TRUEC = false>
 __device__ __forceinline__ void dwln_row(float* __restrict__ acc, const T* __restrict__ x,
                                          const float* __restrict__ dw,
                                          const float* __restrict__ dwb,
                                          const float* __restrict__ lnw,
                                          const float* __restrict__ lnb, bf16* __restrict__ a,
-                                         int H, int W, int C, int f, int y) {
+                                         int H, int W, int C, int f, int y,
+                                         int Ct = 0) {
   constexpr int HALO = PAD ? 3 : 0;  // pixels of x outside the frame, each side
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nseg = (W + SEG - 1) / SEG, ld = W + 2 * HALO;
@@ -163,8 +169,9 @@ __device__ __forceinline__ void dwln_row(float* __restrict__ acc, const T* __res
   if constexpr (DWONLY) return;
   __syncthreads();
 
-  // channel LN, one warp per pixel, a channel pair per lane and step
-  const float invc = 1.f / C;
+  // channel LN, one warp per pixel, a channel pair per lane and step (the
+  // pads add exact zeros to the mean's sum; the variance skips them)
+  const float invc = 1.f / (TRUEC ? Ct : C);
   const int C2 = C / 2;
   for (int q = warp; q < W; q += NT / 32) {
     const float2* row = (const float2*)(acc + (size_t)q * C);
@@ -177,8 +184,13 @@ __device__ __forceinline__ void dwln_row(float* __restrict__ acc, const T* __res
     float var = 0.f;
     for (int g = lane; g < C2; g += 32) {
       const float2 v = row[g];
-      const float d0 = v.x - mu, d1 = v.y - mu;
-      var += d0 * d0 + d1 * d1;
+      if constexpr (TRUEC) {
+        const float d0 = 2 * g < Ct ? v.x - mu : 0.f, d1 = 2 * g + 1 < Ct ? v.y - mu : 0.f;
+        var += d0 * d0 + d1 * d1;
+      } else {
+        const float d0 = v.x - mu, d1 = v.y - mu;
+        var += d0 * d0 + d1 * d1;
+      }
     }
     const float rstd = rsqrtf(warp_sum(var) * invc + 1e-6f);
     __nv_bfloat162* dst = (__nv_bfloat162*)(a + (((size_t)f * H + y) * W + q) * C);

@@ -26,6 +26,15 @@ cnx_grn(const float* __restrict__ part, const float* __restrict__ gamma, float* 
   grn_frame(part, gamma, gn, T, N, blockIdx.x);
 }
 
+// the same on a width N padded past the true width Nt: GRN's channel mean
+// over the Nt true columns; a kernel of its own, so that the aligned one
+// above compiles as it did
+__global__ void __launch_bounds__(NT)
+cnx_grn_tn(const float* __restrict__ part, const float* __restrict__ gamma,
+           float* __restrict__ gn, int T, int N, int Nt) {
+  grn_frame<true>(part, gamma, gn, T, N, blockIdx.x, Nt);
+}
+
 // grid (ceil(C / BN), B * T)
 template <class S, typename T>
 __global__ void __launch_bounds__(NT)
@@ -86,10 +95,16 @@ extern "C" int vs_cnx_pw1(const void* a, const void* w1, const void* b1, void* h
   return (int)cudaErrorInvalidValue;
 }
 
+// Nt: the true width, N itself or less where N is padded
 extern "C" int vs_cnx_grn(const void* part, const void* gamma, void* gn, int B, int T, int N,
-                          void* stream) {
-  cnx_grn<<<B, NT, 0, (cudaStream_t)stream>>>((const float*)part, (const float*)gamma,
-                                              (float*)gn, T, N);
+                          int Nt, void* stream) {
+  if (Nt < 1 || Nt > N) return (int)cudaErrorInvalidValue;
+  if (Nt == N)
+    cnx_grn<<<B, NT, 0, (cudaStream_t)stream>>>((const float*)part, (const float*)gamma,
+                                                (float*)gn, T, N);
+  else
+    cnx_grn_tn<<<B, NT, 0, (cudaStream_t)stream>>>((const float*)part, (const float*)gamma,
+                                                   (float*)gn, T, N, Nt);
   return (int)cudaGetLastError();
 }
 

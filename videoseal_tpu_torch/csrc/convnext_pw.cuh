@@ -128,10 +128,14 @@ __device__ __forceinline__ void pw1_tile(unsigned char* smem, const bf16* __rest
   }
 }
 
-// grn_stats of frame f: part (B, T, N) -> gn (B, N)
+// grn_stats of frame f: part (B, T, N) -> gn (B, N). TRUEN: N is a width
+// padded with zero columns (zero gamma) past the true width Nt, and the mean
+// of gx is taken over the Nt true columns; without it Nt is not read.
+template <bool TRUEN = false>
 __device__ __forceinline__ void grn_frame(const float* __restrict__ part,
                                           const float* __restrict__ gamma,
-                                          float* __restrict__ gn, int T, int N, int f) {
+                                          float* __restrict__ gn, int T, int N, int f,
+                                          int Nt = 0) {
   __shared__ float red[NT / 32];
   const int tid = threadIdx.x;
   const float* pf = part + (size_t)f * T * N;
@@ -142,14 +146,14 @@ __device__ __forceinline__ void grn_frame(const float* __restrict__ part,
     for (int t = 0; t < T; ++t) s += pf[(size_t)t * N + ch];
     const float gx = sqrtf(fmaxf(s, 1e-12f));
     g[ch] = gx;
-    local += gx;
+    if (!TRUEN || ch < Nt) local += gx;
   }
   for (int o = 16; o > 0; o >>= 1) local += __shfl_xor_sync(0xffffffffu, local, o);
   if ((tid & 31) == 0) red[tid >> 5] = local;
   __syncthreads();
   float total = 0.f;
   for (int w = 0; w < NT / 32; ++w) total += red[w];
-  const float denom = total / N + 1e-6f;
+  const float denom = total / (TRUEN ? Nt : N) + 1e-6f;
   for (int ch = tid; ch < N; ch += NT) g[ch] = gamma[ch] * (g[ch] / denom);
 }
 

@@ -30,10 +30,10 @@ SIGNATURES = {
     "vs_blend_planar": [P, P, P, P, I, P, P, I, P, P, P, P, I] + [I] * 11 + [F, F, P],
     "vs_detect_height": [P, P, P, I, P, I, I, I, P],
     "vs_blend_planar_attr": [P, P, P, P, I, P, P, I, P] + [I] * 9 + [F, F, I, P],
-    "vs_cnx_dwln_f32": [P] * 6 + [I] * 4 + [P],
-    "vs_cnx_dwln_bf16": [P] * 6 + [I] * 4 + [P],
+    "vs_cnx_dwln_f32": [P] * 6 + [I] * 5 + [P],
+    "vs_cnx_dwln_bf16": [P] * 6 + [I] * 5 + [P],
     "vs_cnx_pw1": [P] * 5 + [I] * 4 + [P],
-    "vs_cnx_grn": [P] * 3 + [I] * 3 + [P],
+    "vs_cnx_grn": [P] * 3 + [I] * 4 + [P],
     "vs_cnx_pw2_f32": [P] * 7 + [I] * 4 + [P],
     "vs_cnx_pw2_bf16": [P] * 7 + [I] * 4 + [P],
     "vs_cnx_group_f32": [P] * 9 + [I] * 6 + [P],

@@ -15,6 +15,18 @@ turn) and the wrappers that pick between them by the tensor's device: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernels or
 raises.
 
+Any width: a block whose width C is not a multiple of 16 (chunkyseal's
+362, 724 and 1448) runs at the padded width Cp = ceil16(C), with 4 * Cp
+hidden columns. `block_params` pads every parameter with zeros (taps, biases,
+LN and GRN vectors, the rows and columns of both products) and records the
+true width as p["c"]; the dwln kernel then takes the LN's statistics over
+the C true channels and grn_stats GRN's channel mean over the 4C true
+columns. With zero pads a padded channel of the activation stays 0 through
+the whole block, residual included, so the caller pads the activation once
+per stage (``convnext_fused.py``) and slices it once. Aligned widths carry no
+"c" and run as before. Any H*W: the products' frame-local M tiles mask a
+frame's ragged last tile, and no load depends on H*W being aligned.
+
 GELU is the erf form (the model's definition). The TPU kernel used the tanh
 form, which differs by up to ~3e-4 per activation.
 """
@@ -35,22 +47,42 @@ MAX_GROUP = 4   # blocks per K3 launch (csrc MAXK)
 SMEM_MAX = 232448
 
 
+def padded_width(c: int) -> int:
+    """The width K2 runs a block of true width c at: c rounded up to 16."""
+    return -(-c // 16) * 16
+
+
+def true_width(p: dict) -> int:
+    """The true width of `block_params` p (its padded width where it has no
+    pads)."""
+    return p.get("c", p["dw"].shape[1])
+
+
 def block_params(blk) -> dict:
     """A ConvNeXtBlock's parameters in the layout both versions read:
-    dw (49, C) f32; the pointwise weights in torch Linear layout (out, in),
-    bf16; every vector f32."""
+    dw (49, Cp) f32; the pointwise weights in torch Linear layout (out, in),
+    bf16; every vector f32. Cp = padded_width(C); where it is not C, every
+    entry is zero-padded to Cp channels and 4 * Cp hidden columns, and
+    p["c"] is C."""
     c = blk.dwconv.weight.shape[0]
-    f32 = lambda t: t.detach().float().reshape(-1).contiguous()
-    return {
-        "dw": blk.dwconv.weight.detach().float().reshape(c, 49).t().contiguous(),
-        "dwb": f32(blk.dwconv.bias), "lnw": f32(blk.norm.weight),
-        "lnb": f32(blk.norm.bias),
-        "w1": blk.pwconv1.weight.detach().to(torch.bfloat16).contiguous(),
-        "b1": f32(blk.pwconv1.bias), "gamma": f32(blk.grn.gamma),
-        "beta": f32(blk.grn.beta),
-        "w2": blk.pwconv2.weight.detach().to(torch.bfloat16).contiguous(),
-        "b2": f32(blk.pwconv2.bias),
+    cp = padded_width(c)
+    pad = lambda t, *n: F.pad(t, [q for k in reversed(n) for q in (0, k)]) if any(n) else t
+    f32 = lambda t, n: pad(t.detach().float().reshape(-1), n - t.numel()).contiguous()
+    bf = lambda t, n, k: pad(t.detach().to(torch.bfloat16), n - t.shape[0],
+                             k - t.shape[1]).contiguous()
+    p = {
+        "dw": pad(blk.dwconv.weight.detach().float().reshape(c, 49).t(), 0, cp - c).contiguous(),
+        "dwb": f32(blk.dwconv.bias, cp), "lnw": f32(blk.norm.weight, cp),
+        "lnb": f32(blk.norm.bias, cp),
+        "w1": bf(blk.pwconv1.weight, 4 * cp, cp),
+        "b1": f32(blk.pwconv1.bias, 4 * cp), "gamma": f32(blk.grn.gamma, 4 * cp),
+        "beta": f32(blk.grn.beta, 4 * cp),
+        "w2": bf(blk.pwconv2.weight, cp, 4 * cp),
+        "b2": f32(blk.pwconv2.bias, cp),
     }
+    if cp != c:
+        p["c"] = c
+    return p
 
 
 def kernel_params(blk) -> dict:
@@ -116,11 +148,12 @@ ACTIVATIONS = {
 
 def _dwln_padded(xpad: torch.Tensor, p: dict, dw_form: str = "perdy") -> torch.Tensor:
     """dwln on a padded input xpad (B, H+6, W+6, C) whose halo is read as
-    it is: depthwise 7x7 + dwb, channel LN (eps 1e-6), rounded to bf16 ->
-    A (B*H*W, C) bf16, row-major."""
+    it is: depthwise 7x7 + dwb, channel LN (eps 1e-6) over the true
+    channels, rounded to bf16 -> A (B*H*W, C) bf16, row-major."""
     acc = dw_plain(xpad, p["dw"], dw_form) + p["dwb"]
-    mu = acc.mean(dim=-1, keepdim=True)
-    var = (acc - mu).square().mean(dim=-1, keepdim=True)
+    real = acc[..., :true_width(p)]
+    mu = real.mean(dim=-1, keepdim=True)
+    var = (real - mu).square().mean(dim=-1, keepdim=True)
     xn = (acc - mu) * torch.rsqrt(var + 1e-6) * p["lnw"] + p["lnb"]
     return xn.to(torch.bfloat16).reshape(-1, xn.shape[-1])
 
@@ -143,18 +176,20 @@ def pw1_plain(a: torch.Tensor, p: dict, frames: int, act: str = "erf") -> tuple:
     return h, hf.square().view(frames, -1, hf.shape[-1]).sum(dim=1)
 
 
-def grn_stats_plain(sums: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+def grn_stats_plain(sums: torch.Tensor, gamma: torch.Tensor, n: int | None = None
+                    ) -> torch.Tensor:
     """Plain version of K2's grn_stats: the per-frame sums of squares
     (B, 4C), or the kernel's partials (B, tiles, 4C) reduced in tile order,
     -> gn = gamma * nx (B, 4C) f32 with gx = sqrt(max(s, 1e-12)) and
-    nx = gx / (mean_c gx + 1e-6)."""
+    nx = gx / (mean_c gx + 1e-6), the mean over the first n (the true 4C,
+    default all) columns."""
     if sums.dim() == 3:
         s = sums[:, 0]
         for t in range(1, sums.shape[1]):
             s = s + sums[:, t]
         sums = s
     gx = torch.sqrt(torch.clamp(sums, min=1e-12))
-    return gamma * (gx / (gx.mean(dim=-1, keepdim=True) + 1e-6))
+    return gamma * (gx / (gx[:, :n].mean(dim=-1, keepdim=True) + 1e-6))
 
 
 def pw2_plain(h: torch.Tensor, gn: torch.Tensor, p: dict, res: torch.Tensor,
@@ -175,15 +210,16 @@ def block_plain_padded(xpad: torch.Tensor, p: dict, out_dtype: torch.dtype,
     dw_form="perdy", act="erf" on a zero halo: the four parts in turn."""
     b, h, w = xpad.shape[0], xpad.shape[1] - 6, xpad.shape[2] - 6
     hid, sums = pw1_plain(_dwln_padded(xpad, p, dw_form), p, b, act)
-    return pw2_plain(hid, grn_stats_plain(sums, p["gamma"]), p, xpad[:, 3:3 + h, 3:3 + w],
-                     out_dtype)
+    return pw2_plain(hid, grn_stats_plain(sums, p["gamma"], 4 * true_width(p)), p,
+                     xpad[:, 3:3 + h, 3:3 + w], out_dtype)
 
 
 def convnext_block_plain(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Plain PyTorch version of K2. x (B, H, W, C) f32 or bf16: dwln, pw1,
-    grn_stats and pw2 in turn."""
+    """Plain PyTorch version of K2. x (B, H, W, Cp) f32 or bf16, Cp the
+    width of p (its pad channels zero): dwln, pw1, grn_stats and pw2 in
+    turn."""
     hid, sums = pw1_plain(dwln_plain(x, p), p, x.shape[0])
-    return pw2_plain(hid, grn_stats_plain(sums, p["gamma"]), p, x, x.dtype)
+    return pw2_plain(hid, grn_stats_plain(sums, p["gamma"], 4 * true_width(p)), p, x, x.dtype)
 
 
 def convnext_blocks_plain(x: torch.Tensor, params_list) -> torch.Tensor:
@@ -200,8 +236,10 @@ def convnext_blocks_plain(x: torch.Tensor, params_list) -> torch.Tensor:
 
 
 def k3_takes(h: int, w: int, c: int) -> bool:
-    """Whether K3 takes frames of h x w x c: K2's rule (`_check_shape`),
-    since K3 runs K2's parts."""
+    """Whether K3 takes frames of h x w x c (c the true width): the rule K2
+    had before it took padded widths and any H*W, since K3 has been held bit
+    for bit against K2 only on such shapes: c % 16 == 0, H*W % 16 == 0 and
+    one image row of dwln's f32 output within shared memory."""
     return not (c % 16 or (h * w) % 16 or 4 * w * c > SMEM_MAX)
 
 
@@ -211,20 +249,25 @@ def _check(name: str, x: torch.Tensor, params_list, dtypes=(torch.float32, torch
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name} kernel takes a contiguous 4-d NHWC tensor")
     for p in params_list:
+        if x.shape[-1] != p["dw"].shape[1]:
+            raise ValueError(f"{name} kernel takes x at the parameters' padded width "
+                             f"{p['dw'].shape[1]}, got {x.shape[-1]}")
         for k, v in p.items():
-            if v.device != x.device or not v.is_contiguous():
+            if torch.is_tensor(v) and (v.device != x.device or not v.is_contiguous()):
                 raise ValueError(f"parameter {k} must be contiguous on {x.device}")
 
 
 def _check_shape(b: int, h: int, w: int, c: int) -> int:
-    """K2's shape check (K3's and K8's too): C % 16 == 0 (16-byte rows for
-    cp.async and the vector loads), H*W % 16 == 0, and one image row of
-    dwln's f32 output, all channels, within shared memory. Returns the GEMMs'
-    frame-local M tile: 128 rows where a frame has that many, else 64."""
+    """K2's shape check (K3's and K8's too), on the padded width c: c % 16
+    == 0 (16-byte rows for cp.async and the vector loads) and one image row
+    of dwln's f32 output, all channels, within shared memory; any H*W.
+    Returns the GEMMs' frame-local M tile: 128 rows where a frame has that
+    many, else 64."""
     hw = h * w
-    if not k3_takes(h, w, c):
-        raise ValueError(f"convnext_block_fused kernel takes C % 16 == 0, H*W % 16 == 0 and "
-                         f"4*W*C <= {SMEM_MAX} bytes of shared memory, got H={h} W={w} C={c}")
+    if c % 16 or 4 * w * c > SMEM_MAX:
+        raise ValueError(f"convnext_block_fused kernel takes a width C % 16 == 0 (pad it with "
+                         f"block_params) and 4*W*C <= {SMEM_MAX} bytes of shared memory, got "
+                         f"H={h} W={w} C={c}")
     bm = 128 if hw >= 128 else 64
     if b * -(-hw // bm) > 65535:
         raise ValueError(f"convnext_block_fused kernel takes at most 65535 (frame, M tile) "
@@ -242,7 +285,7 @@ def k2_parts(x: torch.Tensor, p: dict) -> tuple[list, dict]:
     bm = _check_shape(b, h, w, c)
     if x.data_ptr() % 16:
         raise ValueError("convnext_block_fused kernel takes x at a 16-byte aligned address")
-    hw, n4 = h * w, 4 * c
+    hw, n4, ct = h * w, 4 * c, true_width(p)
     tiles = -(-hw // bm)
     dev = x.device
     buf = {"a": torch.empty((b * hw, c), dtype=torch.bfloat16, device=dev),
@@ -253,20 +296,20 @@ def k2_parts(x: torch.Tensor, p: dict) -> tuple[list, dict]:
     lib, stream = _lib.library(), _lib.stream_ptr(x)
     sfx = "f32" if x.dtype == torch.float32 else "bf16"
     ptr = {k: v.data_ptr() for k, v in buf.items()}
-    pp = {k: v.data_ptr() for k, v in p.items()}
+    pp = {k: p[k].data_ptr() for k in _PARAM_ORDER}
 
     def dwln():
         _lib.check(getattr(lib, f"vs_cnx_dwln_{sfx}")(
-            x.data_ptr(), pp["dw"], pp["dwb"], pp["lnw"], pp["lnb"], ptr["a"], b, h, w, c, stream),
-            "vs_cnx_dwln")
+            x.data_ptr(), pp["dw"], pp["dwb"], pp["lnw"], pp["lnb"], ptr["a"], b, h, w, c, ct,
+            stream), "vs_cnx_dwln")
 
     def pw1():
         _lib.check(lib.vs_cnx_pw1(ptr["a"], pp["w1"], pp["b1"], ptr["hid"], ptr["part"], b, hw,
                                   c, bm, stream), "vs_cnx_pw1")
 
     def grn_stats():
-        _lib.check(lib.vs_cnx_grn(ptr["part"], pp["gamma"], ptr["gn"], b, tiles, n4, stream),
-                   "vs_cnx_grn")
+        _lib.check(lib.vs_cnx_grn(ptr["part"], pp["gamma"], ptr["gn"], b, tiles, n4, 4 * ct,
+                                  stream), "vs_cnx_grn")
 
     def pw2():
         _lib.check(getattr(lib, f"vs_cnx_pw2_{sfx}")(
@@ -285,9 +328,9 @@ def _launch(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def convnext_block_fused(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """K2 on `block_params` p: the plain version for a CPU tensor, the
-    Hopper kernels for a CUDA tensor (which raise on what they do not take).
-    One count per call, whatever the launches inside."""
+    """K2 on `block_params` p, x at p's padded width: the plain version for
+    a CPU tensor, the Hopper kernels for a CUDA tensor (which raise on what
+    they do not take). One count per call, whatever the launches inside."""
     if x.device.type == "cpu":
         return convnext_block_plain(x, p)
     if x.device.type != "cuda":
@@ -305,6 +348,10 @@ def _launch_group(x: torch.Tensor, params_list) -> torch.Tensor:
     if not 1 <= k <= MAX_GROUP:
         raise ValueError(f"convnext_blocks_fused kernel takes 1 to {MAX_GROUP} blocks, got {k}")
     b, h, w, c = x.shape
+    if any("c" in p for p in params_list) or not k3_takes(h, w, c):
+        raise ValueError(f"convnext_blocks_fused kernel takes C % 16 == 0 (no padded "
+                         f"parameters), H*W % 16 == 0 and 4*W*C <= {SMEM_MAX}, got H={h} W={w} "
+                         f"C={c}")
     bm = _check_shape(b, h, w, c)
     if x.data_ptr() % 16:
         raise ValueError("convnext_blocks_fused kernel takes x at a 16-byte aligned address")

@@ -3,14 +3,20 @@ through K2, or groups of blocks through K3. Counterpart of
 ``videoseal_tpu/kernels/convnext_fused.py::convnext_apply_fused``; the TPU's
 VMEM gating (``supports_block``, ``frames_per_step`` and the VMEM test of
 ``blocks_per_step``) has no counterpart: on a CUDA tensor every group is a
-K2 or K3 launch, on a CPU tensor its plain version.
+K2 or K3 launch, on a CPU tensor its plain version. A stage whose width is
+not a multiple of 16 (chunkyseal's) runs at K2's padded width: the
+activation is padded with zero channels once after the stem or downsample
+conv and sliced back once at the stage's end (``convnext_block.py`` says why
+the pads stay zero).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from .convnext_block import convnext_block_fused, convnext_blocks_fused, k3_takes, kernel_params
+from .convnext_block import (convnext_block_fused, convnext_blocks_fused, k3_takes,
+                             kernel_params, padded_width)
 
 
 def block_groups(depth: int, max_block_group: int = 1, shape: tuple | None = None) -> list[int]:
@@ -41,16 +47,19 @@ def convnext_apply_fused(encoder, x: torch.Tensor, max_block_group: int = 1) -> 
     blocks run in the groups of `block_groups`: a group of one is a K2
     launch, a larger group one K3 launch."""
     conv, norm = encoder.downsample_layers[0]
-    x = norm(conv(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1).contiguous()
+    x = norm(conv(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
     for i, stage in enumerate(encoder.stages):
         if i > 0:
             norm, conv = encoder.downsample_layers[i]
-            x = conv(norm(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+            x = conv(norm(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        c, cp = x.shape[-1], padded_width(x.shape[-1])
+        x = (F.pad(x, (0, cp - c)) if cp != c else x).contiguous()
         j = 0
-        for k in block_groups(len(stage), max_block_group, tuple(x.shape[1:])):
+        for k in block_groups(len(stage), max_block_group, (*x.shape[1:3], c)):
             if k == 1:
                 x = convnext_block_fused(x, kernel_params(stage[j]))
             else:
                 x = convnext_blocks_fused(x, [kernel_params(stage[jj]) for jj in range(j, j + k)])
             j += k
+        x = x[..., :c]
     return x

@@ -63,6 +63,9 @@ def convnext_probe_plain(xpad: torch.Tensor, p: dict, variant: str) -> torch.Ten
 def _launch(xpad: torch.Tensor, p: dict, variant: str) -> torch.Tensor:
     _, _, dw_only = _variant(variant)
     _check("convnext_probe", xpad, [p], (torch.bfloat16,))
+    if "c" in p:
+        raise ValueError("convnext_probe kernel takes widths that are multiples of 16 "
+                         "(no padded parameters)")
     b, hp, wp, c = xpad.shape
     h, w = hp - 6, wp - 6
     bm = _check_shape(b, h, w, c)

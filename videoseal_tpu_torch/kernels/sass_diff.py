@@ -104,7 +104,7 @@ def main(argv=None) -> int:
         ca, cb = opc(a), opc(b)
         changed = {k: (ca[k], cb[k]) for k in sorted(set(ca) | set(cb)) if ca[k] != cb[k]}
         print(f"{name}: registers {old_regs.get(name)} -> {new_regs.get(name)}, "
-              f"instructions {len(a)} -> {len(b)}")
+              f"instructions {len(a)} -> {len(b)}, identical {a == b}")
         print(f"  instructions before the first HMMA, to the last, after it: "
               f"{_regions(a)} -> {_regions(b)}")
         print(f"  opcodes whose counts differ (old, new): {changed}")

@@ -8,8 +8,11 @@ modules, so a reference state_dict loads directly:
   ``weight``/``bias`` of shape (C,);
 * ``GRN``: ``gamma``/``beta`` of shape (1, 1, 1, C), 1e-12 floor under the
   square root;
-* ``Norm("batch")`` is ``nn.BatchNorm2d`` (eps 1e-5), used in eval mode;
-* GELU is the exact erf form (``nn.GELU()``).
+* ``make_norm``: "batch" is ``nn.BatchNorm2d`` (eps 1e-5), used in eval
+  mode; "group" ``nn.GroupNorm`` (8 groups, eps 1e-5); "layer" a
+  ``ChannelLayerNorm``; "rms" ``ChanRMSNorm``, ``gamma`` of shape (C, 1, 1);
+* GELU is the exact erf form (``nn.GELU()``); SiLU and LeakyReLU (slope 0.2)
+  complete the activation registry.
 """
 
 from __future__ import annotations
@@ -23,10 +26,13 @@ from ..ops.resize import resize_bilinear
 def get_activation(name: str) -> nn.Module:
     if name == "relu":
         return nn.ReLU()
+    if name == "leakyrelu":
+        return nn.LeakyReLU(0.2)
     if name == "gelu":
         return nn.GELU()
-    raise NotImplementedError(f"activation {name!r}: ported with the other cards "
-                              "(ROADMAP.md 1.2)")
+    if name == "silu":
+        return nn.SiLU()
+    raise NotImplementedError(f"activation {name!r}")
 
 
 def channel_ln(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -73,12 +79,32 @@ class GRN(nn.Module):
         return (self.gamma.float() * (xf * nx) + self.beta.float() + xf).to(x.dtype)
 
 
+class ChanRMSNorm(nn.Module):
+    """RMS norm over the channel axis of NCHW input: F.normalize over C
+    times sqrt(C) times gamma, with the JAX package's floors (1e-24 under the
+    square root, 1e-12 on the norm), in x's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = dim ** 0.5
+        self.gamma = nn.Parameter(torch.ones(dim, 1, 1))
+
+    def forward(self, x):
+        norm = torch.sqrt(torch.clamp(x.square().sum(dim=1, keepdim=True), min=1e-24))
+        return x / torch.clamp(norm, min=1e-12) * self.scale * self.gamma
+
+
 def make_norm(kind: str, dim: int) -> nn.Module:
-    """The reference's norm registry; only "batch" is on the ported path."""
+    """The reference's norm registry, on NCHW input."""
     if kind.startswith("batch"):
         return nn.BatchNorm2d(dim, eps=1e-5)
-    raise NotImplementedError(
-        f"normalization {kind!r}: ported with the other cards (ROADMAP.md 1.2)")
+    if kind.startswith("group"):
+        return nn.GroupNorm(8, dim, eps=1e-5)
+    if kind.startswith("layer"):
+        return ChannelLayerNorm(dim)
+    if kind.startswith("rms"):
+        return ChanRMSNorm(dim)
+    raise NotImplementedError(f"normalization {kind!r}")
 
 
 class Interpolate(nn.Module):

@@ -11,15 +11,18 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.convnext_block import convnext_block_fused, kernel_params
+from ..kernels.convnext_block import convnext_block_fused, kernel_params, padded_width
 from ..kernels.convnext_fused import convnext_apply_fused
 from .common import GRN, ChannelLayerNorm
 
 
 class ConvNeXtBlock(nn.Module):
-    """dwconv7x7 -> LN -> pw(4x) -> GELU -> GRN -> pw -> residual, via K2."""
+    """dwconv7x7 -> LN -> pw(4x) -> GELU -> GRN -> pw -> residual, via K2
+    (at K2's padded width where dim is not a multiple of 16: x is padded
+    and the result sliced here; the extractor's route pads once a stage)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -30,7 +33,11 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = nn.Linear(4 * dim, dim)
 
     def forward(self, x):
-        return convnext_block_fused(x, kernel_params(self))
+        c = x.shape[-1]
+        if padded_width(c) == c:
+            return convnext_block_fused(x, kernel_params(self))
+        xp = F.pad(x, (0, padded_width(c) - c)).contiguous()
+        return convnext_block_fused(xp, kernel_params(self))[..., :c]
 
 
 class ConvNeXtV2(nn.Module):

@@ -9,7 +9,13 @@ port's modules, with the reference's torch names and layouts:
   depthwise (7, 7, 1, C)               -> (C, 1, 7, 7)  (the same transpose)
   Dense kernel (in, out)               -> Linear weight (out, in)
   BatchNorm scale/bias, mean/var       -> weight/bias, running_mean/running_var
+  GroupNorm / LayerNorm scale          -> weight
+  ChanRMSNorm gamma (C,)               -> (C, 1, 1)
   GRN gamma/beta (D,)                  -> (1, 1, 1, D)
+  ViT pos_embed, rel_pos_h / rel_pos_w -> as they are
+
+The extractor's rules follow its parameter tree: ``encoder.block_*`` is the
+SAM ViT of videoseal_0.0, ``encoder.stage*`` a ConvNeXtV2.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ _UNET = [
     (r"^downs_(\d+)\.", r"downs.\1."),
     (r"^bottleneck_(\d+)\.", r"bottleneck.model.\1."),
     (r"^ups_(\d+)\.", r"ups.\1."),
-    (r"\.norm1\.bn\.", ".double_conv.1."),
-    (r"\.norm2\.bn\.", ".double_conv.4."),
+    (r"\.norm1\.(bn|gn|ln|rms)\.", ".double_conv.1."),
+    (r"\.norm2\.(bn|gn|ln|rms)\.", ".double_conv.4."),
     (r"\.conv1\.conv\.", ".double_conv.0."),
     (r"\.conv2\.conv\.", ".double_conv.3."),
     (r"\.res_conv\.conv\.", ".res_conv."),
@@ -39,8 +45,17 @@ _CONVNEXT = [
     (r"^encoder\.down(\d)_norm\.", r"convnext.downsample_layers.\1.0."),
     (r"^encoder\.down(\d)_conv\.", r"convnext.downsample_layers.\1.1."),
     (r"^encoder\.stage(\d)_block(\d+)\.", r"convnext.stages.\1.\2."),
+]
+_PIXEL_DECODER = [
     (r"^pixel_decoder\.up_(\d+)\.conv\.", r"pixel_decoder.output_upscaling.\1.upsample_block.2."),
     (r"^pixel_decoder\.up_(\d+)\.norm\.", r"pixel_decoder.output_upscaling.\1.upsample_block.3."),
+]
+_VIT = [
+    (r"^encoder\.patch_embed\.", "image_encoder.patch_embed.proj."),
+    (r"^encoder\.pos_embed$", "image_encoder.pos_embed"),
+    (r"^encoder\.block_(\d+)\.", r"image_encoder.blocks.\1."),
+    (r"^encoder\.neck_conv(\d)\.", lambda m: f"image_encoder.neck.{2 * int(m[1]) - 2}."),
+    (r"^encoder\.neck_norm(\d)\.", lambda m: f"image_encoder.neck.{2 * int(m[1]) - 1}."),
 ]
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
@@ -68,6 +83,8 @@ def _convert(flat: dict, rules: list) -> dict:
             a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
         elif name.endswith((".grn.gamma", ".grn.beta")):
             a = a.reshape(1, 1, 1, -1)
+        elif re.search(r"\.double_conv\.[14]\.gamma$", name):   # ChanRMSNorm
+            a = a.reshape(-1, 1, 1)
         name = f"{head}.{_LEAF.get(leaf, leaf)}"
         sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
         if leaf == "mean":
@@ -77,9 +94,12 @@ def _convert(flat: dict, rules: list) -> dict:
 
 def from_jax_variables(embedder_vars: dict, extractor_vars: dict) -> tuple[dict, dict]:
     """(embedder_vars, extractor_vars) of a videoseal_tpu model -> (embedder
-    state dict, extractor state dict) of the port's UnetEmbedder and
-    ConvnextExtractor."""
+    state dict, extractor state dict) of the port's UnetEmbedder and its
+    ConvnextExtractor or SegmentationExtractor (chosen by the extractor's
+    parameter tree)."""
     flat = _flatten(embedder_vars["params"]["unet"])
     flat.update(_flatten(embedder_vars.get("batch_stats", {}).get("unet", {})))
     emb = {f"unet.{k}": v for k, v in _convert(flat, _UNET).items()}
-    return emb, _convert(_flatten(extractor_vars["params"]), _CONVNEXT)
+    ext = extractor_vars["params"]
+    vit = any(k.startswith("block_") for k in ext.get("encoder", {}))
+    return emb, _convert(_flatten(ext), (_VIT if vit else _CONVNEXT) + _PIXEL_DECODER)
