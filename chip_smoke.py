@@ -69,7 +69,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  13. videoseal_0.0 at random init (seed 0) in bf16: NHWC embed of 32 u8
      1080p frames as a video, detect and extract_message (the SAM ViT; no
      kernel on the path, every count 0; preds (32, 97)), the scaling_w=0
-     identity, card against CPU on 2 frames in f32 and in bf16; timed.
+     identity, card against CPU on 2 frames in f32 and in bf16; timed;
+ 14. streaming, videoseal_1.0 in bf16, 96 1080p frames in chunks of 32: prints
+     whether the native media runtime loaded (the committed .so or a
+     _build/ copy) or why not. With it: a synthesized h264 clip, each stage
+     timed alone (decode, encode, the device stage with its copies), then
+     embed_video (planar, K1 one a chunk) and detect_video (K2 18 a chunk)
+     end to end with stream_fps, overlap_ratio and the engine's device
+     timeline (copies, kernels, copies under kernels). Without it: the same
+     engine over in-memory planar frames (K1 one a chunk), again with the
+     host's copies taken away (the engine bound by the device), and a
+     detect stream over its output (K2 18 a chunk), printing "native":
+     false, and,
+     where cv2 imports, embed_video's NHWC file path through cv2 (mp4v, 64
+     frames; K4 one a chunk) and detect_video. Holds each detect stream's logits
+     against detect on the same frames, the frame count and a finite PSNR
+     of the output against its source;
+ 15. the evals: evals.speed.test_speed on 32 float 1080p frames (K4, K2) and
+     evals.lowres_quality.run on 8 1080p frames (K1 2, K2 36); prints
+     their rows.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -94,6 +112,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +122,8 @@ from videoseal_tpu_torch.utils.timing import cuda_ms  # noqa: E402
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 H, W, F_SLICE = 1080, 1920, 128
 F_CARDS = 32   # frames of the pixelseal and videoseal_0.0 phases: one chunk
+F_STREAM, STREAM_CHUNK = 96, 32   # the stream phase: three chunks of 1080p
+F_STREAM_CV2 = 64   # cv2's mp4v runs at ~20 fps at 1080p: two chunks there
 STAGES = [(64, 64, 96), (32, 32, 192), (16, 16, 384), (8, 8, 768)]
 DEPTHS = (3, 3, 9, 3)
 # chunkyseal's stages at 256 px (stem 4x4 at stride 2, VALID; dims 128..1024
@@ -137,6 +158,10 @@ V0_F32_ATOL, V0_PRED_ATOL, V0_PRED_MEAN, V0_LOGIT_ATOL = 1e-4, 0.1, 1e-2, 5e-2
 # card the grouped route equals the single one: K3 runs K2's parts on K2's
 # tiles, with the bf16 rounding between blocks that bf16 activations have.
 GROUPED_CPU_ATOL = 2e-2
+# the stream phase: detect_video's logits against detect on the same frames
+# in the same batches on the same card, the same kernels: equal but for the
+# order of cuDNN's sums, should its algorithm differ between two calls
+STREAM_LOGIT_ATOL = 1e-3
 # K4/K5: the plain versions repeat the kernels' f32 arithmetic with sums in
 # another order (K4's width resize and lift as dense matmuls): ~1e-5 relative
 # on the delta. K6 output in [0, 1]: that delta error plus f32 rounding
@@ -1271,6 +1296,285 @@ def phase_probes(dev) -> dict:
     return out | {"launches": launches, "checks": errs, "sweep_K7": sweep7, "sweep_K8": sweep8}
 
 
+def _stream_report(tag: str, stats: dict, walls: dict, smi: str) -> dict:
+    """A stream's fps, its stage walls' overlap and its device timeline."""
+    n = stats["frames"]
+    rec = dict(stats, fps=n / stats["wall_s"])
+    line = f"[stream] {tag}: {n} frames in {stats['wall_s'] * 1e3:.1f} ms = {rec['fps']:.1f} fps"
+    if walls:
+        rec["walls_s"] = walls
+        rec["overlap_ratio"] = sum(walls.values()) / stats["wall_s"]
+        line += (" (alone: " + ", ".join(f"{k} {n / v:.1f} fps" for k, v in walls.items())
+                 + f"; overlap_ratio {rec['overlap_ratio']:.3f})")
+    if "h2d_ms" in stats:
+        line += (f"; device: h2d {stats['h2d_ms']:.2f} ms, kernels {stats['kernels_ms']:.2f}, "
+                 f"d2h {stats['d2h_ms']:.2f}, copies under kernels "
+                 f"{stats['copies_under_kernels_ms']:.2f}, span {stats['device_span_ms']:.2f}")
+    log(f"{line} ({smi})")
+    return rec
+
+
+def _stream_run(tag: str, model, fill, chunk_shape, step, sink, want: dict, smi: str,
+                walls: dict) -> dict:
+    """One stream through the engine with every count at 0 just before it
+    and read just after."""
+    from videoseal_tpu_torch.inference_streaming import run_stream
+
+    reset_counts()
+    stats = run_stream(fill, chunk_shape, step, sink, model.device)
+    launches = check_counts(f"stream {tag}", want)
+    return {"launches": launches, **_stream_report(tag, stats, walls, smi)}
+
+
+def _stream_memory(model, dev, smi: str) -> dict:
+    """The planar stream over in-memory frames (the host codec replaced by
+    copies), then the detect stream over its output."""
+    from videoseal_tpu_torch.evals.streaming_bench import device_stage, planar_step
+    from videoseal_tpu_torch.inference_streaming import detect_step, unit_frames
+    from videoseal_tpu_torch.kernels.fused_planar import C0, R0, TH, planar_geometry, planar_shape
+
+    n_tiles, _, _, wq = planar_geometry(H, W)
+    out_shape = (F_STREAM, 3, TH * n_tiles, wq)
+    src = planar_frames(F_STREAM, 11, dev, H, W).cpu().numpy()
+    msgs = model.get_random_msg(1)
+    step = planar_step(model, H, W, msgs)
+    chunks = [src[i:i + STREAM_CHUNK] for i in range(0, F_STREAM, STREAM_CHUNK)]
+    n_chunks = len(chunks)
+    pinned = dev.type == "cuda"
+    buf = torch.zeros(planar_shape(STREAM_CHUNK, H, W), dtype=torch.uint8,
+                      pin_memory=pinned).numpy()
+    t0 = time.perf_counter()
+    for c in chunks:
+        buf[:c.shape[0]] = c
+    t_fill = time.perf_counter() - t0
+    t_dev = device_stage(step, chunks, dev)
+    out = np.zeros(out_shape, np.uint8)
+    out.fill(0)   # touch every page before the sink is timed
+    done = 0
+
+    def sink(a):
+        nonlocal done
+        out[done:done + a.shape[0]] = a
+        done += a.shape[0]
+
+    zeros = torch.zeros((STREAM_CHUNK,) + out_shape[1:], dtype=torch.uint8,
+                        pin_memory=pinned).numpy()
+    t0 = time.perf_counter()
+    for c in chunks:
+        sink(zeros[:c.shape[0]])
+    t_sink = time.perf_counter() - t0
+    done = 0
+
+    def fill_from(frames):
+        pos = [0]
+
+        def fill(b):
+            k = min(b.shape[0], frames.shape[0] - pos[0])
+            b[:k] = frames[pos[0]:pos[0] + k]
+            pos[0] += k
+            return k
+        return fill
+
+    rec = {"embed": _stream_run("planar embed, in-memory frames", model, fill_from(src),
+                                planar_shape(STREAM_CHUNK, H, W), step, sink,
+                                {"K1": n_chunks}, smi,
+                                {"fill": t_fill, "device": t_dev, "sink": t_sink})}
+    if done != F_STREAM:
+        raise AssertionError(f"the stream wrote {done} frames of {F_STREAM}")
+    # the stream's output against embed_planar of the same chunk, called directly
+    i = min(1, n_chunks - 1) * STREAM_CHUNK
+    direct = step(torch.from_numpy(chunks[i // STREAM_CHUNK]).to(dev)).cpu().numpy()
+    d = np.abs(direct.astype(np.int16) - out[i:i + direct.shape[0]].astype(np.int16))
+    log(f"[stream] in-memory: frames {i}.. against embed_planar called directly: u8 max diff "
+        f"{int(d.max())}, share differing {float((d > 0).mean()):.2e}")
+    if int(d.max()) > K1_U8_MAX or float((d > 0).mean()) > K1_U8_SHARE:
+        raise AssertionError("the stream's output differs from embed_planar's")
+
+    # the same stream with the host's copies taken away (fill writes nothing,
+    # the buffers keep earlier chunks; sink drops the result): the engine
+    # bound by the device, where the copies can run under the kernels
+    left = [F_STREAM]
+
+    def fill_nothing(b):
+        k = min(b.shape[0], left[0])
+        left[0] -= k
+        return k
+
+    rec["device_bound"] = _stream_run("planar embed, host copies taken away", model,
+                                      fill_nothing, planar_shape(STREAM_CHUNK, H, W), step,
+                                      lambda a: None, {"K1": n_chunks}, smi, {"device": t_dev})
+
+    nhwc = np.ascontiguousarray(out[:, :, :H, :W].transpose(0, 2, 3, 1))
+    logits = []
+    rec["detect"] = _stream_run("detect, in-memory frames", model, fill_from(nhwc),
+                                (STREAM_CHUNK, H, W, 3), detect_step(model),
+                                lambda a: logits.append(a.copy()),
+                                {"K2": 18 * n_chunks}, smi, {})
+    want = model.detect(unit_frames(torch.from_numpy(nhwc).to(dev)), is_video=True)["preds"]
+    rec.update(_hold_stream(np.concatenate(logits), want.float().cpu().numpy(),
+                            src[:, :, R0:R0 + H, C0:C0 + W].transpose(0, 2, 3, 1), nhwc,
+                            F_STREAM))
+    return rec
+
+
+def _hold_stream(logits: np.ndarray, want: np.ndarray, src: np.ndarray,
+                 out: np.ndarray, frames: int) -> dict:
+    """The stream's logits against detect's on the same frames; the frame
+    count; the watermarked output's PSNR against its source."""
+    from videoseal_tpu_torch.ops.metrics import psnr
+
+    ld = float(np.abs(logits - want).max())
+    p = float(psnr(torch.from_numpy(src).float() / 255.0,
+                   torch.from_numpy(out).float() / 255.0, is_video=True))
+    log(f"[stream] detect stream vs detect on the same frames: logits max abs diff {ld:.3e}; "
+        f"frames {out.shape[0]}; PSNR of the output against its source {p:.2f} dB")
+    if logits.shape != want.shape or ld > STREAM_LOGIT_ATOL:
+        raise AssertionError("the detect stream's logits differ from detect's")
+    if out.shape[0] != frames or not math.isfinite(p):
+        raise AssertionError(f"stream output: {out.shape[0]} frames, PSNR {p}")
+    return {"logit_max": ld, "psnr": p}
+
+
+def _stream_files(model, dev, smi: str, planar: bool) -> dict:
+    """The file entry points on a synthesized clip: embed_video (planar
+    through the native runtime, else NHWC through cv2), then detect_video
+    of the output. Each stage is timed alone first."""
+    import tempfile
+
+    from videoseal_tpu_torch import inference_streaming as st
+    from videoseal_tpu_torch.evals import streaming_bench as sb
+    from videoseal_tpu_torch.kernels.fused_planar import C0, R0
+
+    frames = F_STREAM if planar else F_STREAM_CV2
+    n_chunks = math.ceil(frames / STREAM_CHUNK)
+    msgs = model.get_random_msg(1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        src, dst = os.path.join(tmp, "src.mp4"), os.path.join(tmp, "wm.mp4")
+        t0 = time.perf_counter()
+        sb.synth_video(src, frames, H, W)
+        log(f"[stream] synthesized {frames} frames of {W}x{H} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if planar:
+            chunks, t_dec = sb.decode_stage(src, STREAM_CHUNK)
+            t_enc = sb.encode_stage(chunks, os.path.join(tmp, "copy.mp4"), H, W)
+            step = sb.planar_step(model, H, W, msgs)
+        else:
+            t0 = time.perf_counter()
+            reader, chunks = st.open_reader(src), []
+            while True:
+                c = reader.read(STREAM_CHUNK, np.empty((STREAM_CHUNK, H, W, 3), np.uint8))
+                if c.shape[0] == 0:
+                    break
+                chunks.append(c)
+            reader.close()
+            t_dec = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            wr = st.open_writer(os.path.join(tmp, "copy.mp4"), W, H, 24)
+            for c in chunks:
+                wr.write(c)
+            wr.close()
+            t_enc = time.perf_counter() - t0
+            step = st.embed_step(model, msgs)
+        t_dev = sb.device_stage(step, chunks, dev)
+        walls = {"decode": t_dec, "device": t_dev, "encode": t_enc}
+        n = sum(c.shape[0] for c in chunks)
+
+        reset_counts()
+        info = st.embed_video(model, src, dst, chunk_size=STREAM_CHUNK)
+        tag = "planar embed_video (native)" if planar else "NHWC embed_video (cv2, mp4v)"
+        launches = check_counts(f"stream {tag}", {"K1": n_chunks} if planar else {"K4": n_chunks})
+        rec = {"embed": {"launches": launches,
+                         **_stream_report(tag, info["stats"], walls, smi)}}
+        if info["frames"] != n:
+            raise AssertionError(f"embed_video wrote {info['frames']} frames of {n}")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        msg, logits = st.detect_video(model, dst, chunk_size=STREAM_CHUNK, return_preds=True)
+        t_det = time.perf_counter() - t0
+        rec["detect"] = {"launches": check_counts("stream detect_video", {"K2": 18 * n_chunks}),
+                         "wall_s": t_det, "fps": n / t_det}
+        log(f"[stream] detect_video: {n} frames in {t_det * 1e3:.1f} ms = {n / t_det:.1f} fps "
+            f"({smi})")
+        reader = st.open_reader(dst)
+        out = reader.read(frames + 1, np.empty((frames + 1, H, W, 3), np.uint8))
+        reader.close()
+    src_frames = np.concatenate(
+        [c[:, :, R0:R0 + H, C0:C0 + W].transpose(0, 2, 3, 1) if planar else c for c in chunks])
+    want = model.detect(st.unit_frames(torch.from_numpy(np.ascontiguousarray(out)).to(dev)),
+                        is_video=True)["preds"].float().cpu().numpy()
+    rec.update(_hold_stream(logits.numpy(), want, src_frames, out, frames))
+    bits = float((msg.cpu() == msgs.cpu()).float().mean())
+    log(f"[stream] bit accuracy of detect_video's message (random weights: ~0.5 expected) "
+        f"{bits:.3f}")
+    return rec
+
+
+def phase_stream(dev, smi: str) -> dict:
+    """Streaming on the card, videoseal_1.0 in bf16, 96 1080p frames in
+    chunks of 32: the planar file path where the native media runtime loads;
+    else the same engine over in-memory frames, and the NHWC file path
+    through cv2 where cv2 imports."""
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch import native
+
+    model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
+    ok = native.available()
+    if ok:
+        where = ("the committed .so" if native.origin() == native._COMMITTED
+                 else "a _build/ copy")
+        log(f"[stream] native media runtime: loaded {where} ({native.origin()})")
+    else:
+        log(f"[stream] native media runtime: unavailable: {native.last_error()}")
+    rec = {"native": ok, "native_origin": native.origin(),
+           "native_error": None if ok else native.last_error()}
+    log(json.dumps({"native": ok}))
+    if ok:
+        rec["files"] = _stream_files(model, dev, smi, planar=True)
+    else:
+        rec["memory"] = _stream_memory(model, dev, smi)
+        try:
+            import cv2  # noqa: F401
+        except ImportError:
+            log("[stream] cv2 is not installed: no file path to drive")
+        else:
+            rec["files"] = _stream_files(model, dev, smi, planar=False)
+    runs = [r[k]["launches"] for r in (rec.get("files"), rec.get("memory")) if r
+            for k in ("embed", "detect", "device_bound") if k in r]
+    rec["launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    return rec
+
+
+def phase_evals(dev, smi: str) -> dict:
+    """evals.speed.test_speed (32 float 1080p frames, bf16) and
+    evals.lowres_quality.run (8 1080p frames, f32, as the JAX harness
+    loads it), each with the counts at 0 just before it."""
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch.evals import lowres_quality, speed
+
+    model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
+    g = torch.Generator(device=dev).manual_seed(13)
+    frames = torch.rand((32, H, W, 3), generator=g, device=dev)
+    reps = 3
+    reset_counts()
+    row = speed.test_speed(model, frames, num_runs=reps)
+    # cuda_ms: one warm-up call and `reps` timed calls of embed and of detect
+    rec = {"speed": row, "launches_speed": check_counts(
+        "evals speed", {"K4": reps + 1, "K2": 18 * (reps + 1)})}
+    log(f"[evals] speed: {json.dumps(row)} ({smi})")
+    reset_counts()
+    rows = lowres_quality.run("videoseal_1.0", H, W, 8, 0, device=dev)
+    rec["lowres_quality"] = rows
+    rec["launches_lowres"] = check_counts("evals lowres_quality", {"K1": 2, "K2": 36})
+    for r in rows:
+        log(f"[evals] lowres_quality: {json.dumps(r)} ({smi})")
+    if not all(math.isfinite(r["psnr"]) and math.isfinite(r["ssim"]) for r in rows[:2]):
+        raise AssertionError("lowres_quality gave a PSNR or SSIM that is not finite")
+    rec["launches"] = {k: rec["launches_speed"][k] + rec["launches_lowres"][k]
+                       for k in rec["launches_speed"]}
+    return rec
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -1370,12 +1674,14 @@ def main() -> int:
     rec["probes"] = phase_probes(dev)
     rec["pixelseal"] = phase_pixelseal(dev, smi)
     rec["v0"] = phase_v0(dev, smi)
+    rec["stream"] = phase_stream(dev, smi)
+    rec["evals"] = phase_evals(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
-                                            "grouped", "probes")]
+                                            "grouped", "probes", "stream", "evals")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

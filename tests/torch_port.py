@@ -69,6 +69,23 @@ def tiny_card_v0(img_size: int = 64, step: int = 2, chunk: int = 4) -> dict:
     }
 
 
+def tiny_preset_card(img_size: int = 64, step: int = 2) -> tuple[dict, dict]:
+    """(card, training args) of the smallest presets a checkpoint's args can
+    name (unet_tiny_yuv_quant, convnext_tiny), as
+    ``utils.cfg.get_config_from_checkpoint`` rebuilds them from the args."""
+    from videoseal_tpu_torch import presets
+
+    args = {"embedder_model": "unet_tiny_yuv_quant", "extractor_model": "convnext_tiny",
+            "nbits": NBITS, "img_size_proc": img_size, "attenuation": "jnd_1_1",
+            "scaling_w": 0.2, "videoseal_step_size": step}
+    card = {"args": dict(args, hidden_size_multiplier=2),
+            "embedder": {"model": "unet_tiny_yuv_quant",
+                         "params": copy.deepcopy(presets.EMBEDDER["unet_tiny_yuv_quant"])},
+            "extractor": {"model": "convnext_tiny",
+                          "params": copy.deepcopy(presets.EXTRACTOR["convnext_tiny"])}}
+    return card, args
+
+
 def _randomize(tree, rng, path=""):
     """Numpy copy of a variables tree with BN stats/affine, GRN, RMS norm
     gains and the ViT's position tables randomised."""

@@ -26,8 +26,7 @@ from ..modules.jnd import JND, build_attenuation
 from ..modules.msg_processor import get_random_msg
 from ..ops.color import rgb_to_y
 from ..ops.resize import resize_bilinear
-from ..utils.checkpoint import load_npz
-from ..utils.convert import from_jax_variables
+from ..utils.checkpoint import load_into
 from .blender import blend
 from .embedder import EmbedderSpec, build_embedder
 from .extractor import ExtractorSpec, build_extractor
@@ -333,6 +332,14 @@ class VideoSeal:
         return aggregate_message(preds, aggregation)
 
     # -- planar-u8 serving path -------------------------------------------
+    @property
+    def supports_planar(self) -> bool:
+        """Can the padded-planar u8 video path serve this card? It needs JND
+        attenuation, additive blending and a 1-channel prediction (the
+        production cards videoseal_1.0 and pixelseal)."""
+        return (self.attenuation is not None and self.cfg.blending_method == "additive"
+                and self.embedder_spec.out_channels == 1)
+
     def embed_planar(self, imgs_p, h: int, w: int, msgs=None,
                      lowres_attenuation: bool | None = None) -> dict:
         msgs = self._msgs(msgs)
@@ -405,7 +412,7 @@ class VideoSeal:
         """Build on `device` (the card unless the caller asks for the CPU),
         at random init from `seed` unless a checkpoint is given: the JAX
         package's native ``.npz`` or a reference-named ``torch.save`` file
-        (an http(s) URL is skipped)."""
+        (``utils/checkpoint.load_into``; an http(s) URL is skipped)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VideoSeal.from_card builds on the CUDA device by default and "
@@ -434,14 +441,6 @@ class VideoSeal:
                     scaling_i=float(args.get("scaling_i", 1.0)), card=card, seed=seed)
         checkpoint = checkpoint or card.get("checkpoint_path")
         # a URL is skipped, as the JAX package skips it: nothing is fetched
-        if checkpoint and str(checkpoint).startswith(("http://", "https://")):
-            checkpoint = None
-        if checkpoint and str(checkpoint).endswith(".npz"):
-            emb, ext = from_jax_variables(*load_npz(str(checkpoint)))
-            model.embedder.load_state_dict(emb)
-            model.extractor.load_state_dict(ext)
-        elif checkpoint:
-            ckpt = torch.load(checkpoint, map_location="cpu", weights_only=False)
-            sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
-            model.load_state_dict({k.removeprefix("module."): v for k, v in sd.items()})
+        if checkpoint and not str(checkpoint).startswith(("http://", "https://")):
+            load_into(str(checkpoint), model.embedder, model.extractor)
         return model.to(device)

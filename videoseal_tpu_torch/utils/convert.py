@@ -1,9 +1,11 @@
-"""Weight bridge from the JAX package's variables to the port's state dicts.
+"""Weight bridge between the JAX package's variables and the port's state dicts.
 
 `from_jax_variables(embedder_vars, extractor_vars)` takes the nested dicts of
 numpy arrays that ``videoseal_tpu`` models hold (``params`` plus
 ``batch_stats``) and returns the (embedder, extractor) state dicts of the
-port's modules, with the reference's torch names and layouts:
+port's modules, with the reference's torch names and layouts;
+`to_jax_variables` is its exact inverse (``utils/checkpoint.save_npz``
+writes what it returns):
 
   conv kernel HWIO (kh, kw, I, O)      -> OIHW
   depthwise (7, 7, 1, C)               -> (C, 1, 7, 7)  (the same transpose)
@@ -24,6 +26,8 @@ import re
 
 import numpy as np
 import torch
+
+from .checkpoint import SEP, unflatten_tree
 
 # substitutions applied in order to a JAX path joined with "."
 _UNET = [
@@ -103,3 +107,94 @@ def from_jax_variables(embedder_vars: dict, extractor_vars: dict) -> tuple[dict,
     ext = extractor_vars["params"]
     vit = any(k.startswith("block_") for k in ext.get("encoder", {}))
     return emb, _convert(_flatten(ext), (_VIT if vit else _CONVNEXT) + _PIXEL_DECODER)
+
+
+# the inverse substitutions, applied in order to a port name; a norm's leaf
+# and a weight's layout are settled afterwards, by name and rank
+_UNET_INV = [
+    (r"^downs\.(\d+)\.", r"downs_\1."),
+    (r"^bottleneck\.model\.(\d+)\.", r"bottleneck_\1."),
+    (r"^ups\.(\d+)\.", r"ups_\1."),
+    (r"\.double_conv\.1\.", ".norm1.@."),
+    (r"\.double_conv\.4\.", ".norm2.@."),
+    (r"\.double_conv\.0\.", ".conv1.conv."),
+    (r"\.double_conv\.3\.", ".conv2.conv."),
+    (r"\.res_conv\.", ".res_conv.conv."),
+    (r"\.up\.upsample_block\.2\.", ".up.conv."),
+    (r"\.up\.upsample_block\.3\.", ".up.norm."),
+    (r"^msg_processor\.msg_embeddings\.weight$", "msg_processor.msg_embeddings"),
+]
+_CONVNEXT_INV = [
+    (r"^convnext\.downsample_layers\.0\.0\.", "encoder.stem_conv."),
+    (r"^convnext\.downsample_layers\.0\.1\.", "encoder.stem_norm."),
+    (r"^convnext\.downsample_layers\.(\d)\.0\.", r"encoder.down\1_norm."),
+    (r"^convnext\.downsample_layers\.(\d)\.1\.", r"encoder.down\1_conv."),
+    (r"^convnext\.stages\.(\d)\.(\d+)\.", r"encoder.stage\1_block\2."),
+]
+_PIXEL_DECODER_INV = [
+    (r"^pixel_decoder\.output_upscaling\.(\d+)\.upsample_block\.2\.",
+     r"pixel_decoder.up_\1.conv."),
+    (r"^pixel_decoder\.output_upscaling\.(\d+)\.upsample_block\.3\.",
+     r"pixel_decoder.up_\1.norm."),
+]
+_VIT_INV = [
+    (r"^image_encoder\.patch_embed\.proj\.", "encoder.patch_embed."),
+    (r"^image_encoder\.pos_embed$", "encoder.pos_embed"),
+    (r"^image_encoder\.blocks\.(\d+)\.", r"encoder.block_\1."),
+    (r"^image_encoder\.neck\.(\d)\.",
+     lambda m: f"encoder.neck_{'conv' if int(m[1]) % 2 == 0 else 'norm'}{int(m[1]) // 2 + 1}."),
+]
+# the UNet's norm module in the JAX tree, by the card's `normalization`
+_NORM_NAMES = {"batch": "bn", "group": "gn", "layer": "ln", "rms": "rms"}
+
+
+def _invert(sd: dict, rules: list, norm: str = "bn") -> tuple[dict, dict]:
+    """Port state dict -> (params, batch_stats) as flat dotted JAX paths."""
+    params, stats = {}, {}
+    for name, t in sd.items():
+        head, _, leaf = name.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy()
+        path = name
+        for pat, repl in rules:
+            path = re.sub(pat, repl, path)
+        if ".@." in path:   # a UNet norm: BN keeps running statistics, RMS a gamma
+            kind = ("bn" if f"{head}.running_mean" in sd
+                    else "rms" if leaf == "gamma" else norm)
+            path = path.replace(".@.", f".{kind}.")
+        jhead, _, leaf = path.rpartition(".")
+        if leaf in ("running_mean", "running_var"):
+            stats[f"{jhead}.{leaf[len('running_'):]}"] = a
+            continue
+        if leaf == "weight" and a.ndim >= 2:   # conv HWIO, Dense (in, out)
+            leaf = "kernel"
+            a = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
+        elif leaf in ("gamma", "beta") and (jhead.endswith(".grn") or ".rms" in jhead):
+            a = a.reshape(-1)
+        elif leaf == "weight" and (re.search(r"\.(bn|gn)$", jhead)
+                                   or re.search(r"\.block_\d+\.norm[12]$", jhead)):
+            leaf = "scale"   # flax BatchNorm, GroupNorm and the ViT's LayerNorms
+        params[f"{jhead}.{leaf}" if jhead else leaf] = np.array(a, np.float32, order="C")
+    return params, stats
+
+
+def _nest(flat: dict) -> dict:
+    return unflatten_tree({k.replace(".", SEP): v for k, v in flat.items()})
+
+
+def to_jax_variables(embedder_sd: dict, extractor_sd: dict,
+                     unet_norm: str = "batch") -> tuple[dict, dict]:
+    """(embedder state dict, extractor state dict) of the port's modules ->
+    (embedder_vars, extractor_vars) of a videoseal_tpu model: the inverse of
+    `from_jax_variables`. `unet_norm` (the card's ``normalization``) names
+    the UNet's norms where the state dict cannot: group and layer norms both
+    hold a weight and a bias."""
+    emb = {k[len("unet."):]: v for k, v in embedder_sd.items() if k.startswith("unet.")}
+    params, stats = _invert(emb, _UNET_INV, _NORM_NAMES[unet_norm.split("_")[0]])
+    emb_vars = {"params": {"unet": _nest(params)}}
+    if stats:
+        emb_vars["batch_stats"] = {"unet": _nest(stats)}
+    vit = any(k.startswith("image_encoder.") for k in extractor_sd)
+    ext, _ = _invert(extractor_sd, (_VIT_INV if vit else _CONVNEXT_INV) + _PIXEL_DECODER_INV)
+    return emb_vars, {"params": _nest(ext)}
