@@ -87,7 +87,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      of the output against its source;
  15. the evals: evals.speed.test_speed on 32 float 1080p frames (K4, K2) and
      evals.lowres_quality.run on 8 1080p frames (K1 2, K2 36); prints
-     their rows.
+     their rows;
+ 16. attacks, videoseal_1.0 in bf16 at PyTorch's TF32 defaults: every aug of
+     the image and video grids at each grid strength on the card against
+     the CPU (2 float frames at 720x1280, 4 for the video rows; warps,
+     blurs and value ops within 1e-5, the JPEG proxy's flipped roundings on
+     < 1e-3 of values and within one quantisation step); evals.full.evaluate
+     over the image grid (4 float 1080p images, 78 rows: K4 1, K2 1,404; the
+     identity row against a direct embed) and the video grid (16 frames at
+     720x1280, 36 rows: K4 1, K2 648; the codec rows' route printed; the
+     proxy refusing 1080 rows); 16 draws of the augs_geometric augmenter
+     forward and backward on 32 watermarked 256x256 images (embed K4 1) and
+     a detect of the last (K2 18). Per-row attack and detect ms (CUDA
+     events), the slowest five attacks, the grids' walls; rows in
+     chiprun_out/attacks_*_grid.csv.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -178,6 +191,15 @@ DELTA_RTOL, BLEND_ATOL, K4_BLEND_F32_ATOL = 1e-5, 1e-6, 2e-7
 # tile is 6e-5 of them, one wrong frame 8e-3), the mean abs error under
 # K8_MEAN and every output within K8_MAX.
 K8_SHARE, K8_MEAN, K8_MAX = 1e-5, 1e-4, 0.5
+# phase 16, each grid attack on the card against the CPU from the same frames:
+# warps, blurs and value ops run the same float32 operations in the same
+# order on both (the warps' parameters solved on the host), the resizes are
+# float32 matmuls with their sums in another order; the JPEG proxy can round
+# a coefficient that lands within an ulp of .5 the other way, which moves a
+# pixel by at most one quantisation step
+AUG_ATOL, JPEG_FLIP_SHARE = 1e-5, 1e-3
+F_ATTACK_IMAGES, F_ATTACK_VIDEO, F_AUGMENTER = 4, 16, 32
+ATTACK_HW = (720, 1280)   # the card-vs-CPU frames and the video grid's
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -1575,6 +1597,217 @@ def phase_evals(dev, smi: str) -> dict:
     return rec
 
 
+def _is_jpeg_proxy(aug) -> bool:
+    """Does the aug (or the first of a Sequential) run the JPEG proxy?"""
+    from videoseal_tpu_torch.augmentation import augs as A
+    first = aug.augs[0] if hasattr(aug, "augs") else aug
+    return isinstance(first, (A.JPEG, A.VideoCompressionProxy))
+
+
+def _jpeg_step(aug, strength) -> float:
+    """One quantisation step of the largest table entry at the aug's
+    quality, in [0, 1] pixels."""
+    from videoseal_tpu_torch.augmentation import augs as A
+    from videoseal_tpu_torch.ops import jpeg
+    first = aug.augs[0] if hasattr(aug, "augs") else aug
+    s = strength[0] if isinstance(strength, tuple) else strength
+    q = s if isinstance(first, A.JPEG) else A.crf_to_quality(s)
+    return float(max(jpeg.scaled_table(jpeg._Q_LUMA, q).max(),
+                     jpeg.scaled_table(jpeg._Q_CHROMA, q).max())) / 255.0
+
+
+def _attacks_card_vs_cpu(dev) -> dict:
+    """Every aug of the image and video grids at each of its strengths on
+    the card and on the CPU from the same frames (2 at 720x1280, 4 for the
+    video rows): within AUG_ATOL, the JPEG proxy within its flip rule."""
+    from videoseal_tpu_torch.augmentation.validation import get_validation_augs
+    from videoseal_tpu_torch.evals.full import synthetic_samples
+
+    x = torch.from_numpy(next(synthetic_samples(1, (4, *ATTACK_HW, 3), seed=21)))
+    rec, t_cpu = {}, 0.0
+    for is_video, n in ((False, 2), (True, 4)):
+        xc = x[:n]
+        mc = torch.ones(xc.shape[:-1] + (1,))
+        xg, mg = xc.to(dev), mc.to(dev)
+        for aug, strengths in get_validation_augs(is_video):
+            worst, share, bound = 0.0, 0.0, AUG_ATOL
+            for s in strengths:
+                t0 = time.perf_counter()
+                oc, mo_c = aug.apply_strength(xc, mc, s)
+                t_cpu += time.perf_counter() - t0
+                og, mo_g = aug.apply_strength(xg, mg, s)
+                d = (og.cpu() - oc).abs()
+                dm = float((mo_g.cpu() - mo_c).abs().max())
+                if _is_jpeg_proxy(aug):
+                    bound = _jpeg_step(aug, s)
+                    share = max(share, float((d > AUG_ATOL).float().mean()))
+                    ok = share < JPEG_FLIP_SHARE and float(d.max()) <= bound
+                else:
+                    ok = float(d.max()) <= AUG_ATOL
+                worst = max(worst, float(d.max()))
+                if not ok or dm > AUG_ATOL:
+                    raise AssertionError(f"attack {aug!r}@{s}: card against CPU max abs diff "
+                                         f"{float(d.max()):.3e} (share over {AUG_ATOL}: "
+                                         f"{float((d > AUG_ATOL).float().mean()):.2e}), mask "
+                                         f"{dm:.3e}")
+            key = f"{'video' if is_video else 'image'}:{aug!r}"
+            rec[key] = {"strengths": [str(s) for s in strengths], "max_abs_diff": worst,
+                        "share_over_atol": share}
+            rule = (f"share over {AUG_ATOL} {share:.2e} < {JPEG_FLIP_SHARE}, max <= {bound:.4f}"
+                    if _is_jpeg_proxy(aug) else f"<= {AUG_ATOL}")
+            log(f"[attacks] card vs CPU, {key} at {len(strengths)} strengths: max abs diff "
+                f"{worst:.3e} ({rule})")
+    log(f"[attacks] card vs CPU: {len(rec)} grid rows hold; the CPU side took {t_cpu:.1f} s")
+    return {"rows": rec, "cpu_s": t_cpu}
+
+
+def _grid_report(tag: str, rows: list, wall_s: float, smi: str) -> dict:
+    att = [r["attack_time"] * 1e3 for r in rows]
+    ext = [r["extract_time"] * 1e3 for r in rows]
+    slow = sorted(rows, key=lambda r: -r["attack_time"])[:5]
+    rest = wall_s - (sum(att) + sum(ext)) / 1e3 - rows[0]["embed_time"]
+    log(f"[attacks] {tag}: {len(rows)} rows in {wall_s:.2f} s wall; per row: attack "
+        f"{np.mean(att):.3f} ms (max {max(att):.3f}), detect {np.mean(ext):.3f} ms (max "
+        f"{max(ext):.3f}) (CUDA events); embed {rows[0]['embed_time'] * 1e3:.1f} ms; the "
+        f"rest (quality metrics, p-values, the host between rows) {rest:.2f} s ({smi})")
+    log(f"[attacks] {tag}: slowest attacks: " + "; ".join(
+        f"{r['aug'].split('(')[0]}@{r['strength']} {r['attack_time'] * 1e3:.3f} ms"
+        for r in slow) + f" ({smi})")
+    bad = [r["aug"] for r in rows if not all(math.isfinite(r[k])
+                                             for k in ("psnr", "ssim", "bit_acc"))]
+    if bad:
+        raise AssertionError(f"{tag}: psnr, ssim or bit_acc not finite in {bad[:3]}")
+    return {"rows": len(rows), "wall_s": wall_s, "rest_s": rest,
+            "embed_ms": rows[0]["embed_time"] * 1e3, "attack_ms_mean": float(np.mean(att)),
+            "detect_ms_mean": float(np.mean(ext)),
+            "slowest": [(r["aug"], r["strength"], r["attack_time"] * 1e3) for r in slow],
+            "bit_acc_mean": float(np.mean([r["bit_acc"] for r in rows])),
+            "psnr": rows[0]["psnr"], "ssim": rows[0]["ssim"]}
+
+
+def phase_attacks(dev, smi: str) -> dict:
+    """The attack simulator and the robustness eval, videoseal_1.0 in bf16 at
+    random init (seed 0): every grid aug on the card against the CPU; the
+    image grid (78 rows) over 4 float 1080p images and the video grid (36
+    rows) over 16 frames at 720x1280 through evals.full.evaluate; 16 draws
+    of the training-path augmenter forward and backward."""
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch import native
+    from videoseal_tpu_torch.augmentation import AUGS, build_augmenter
+    from videoseal_tpu_torch.augmentation import augs as A
+    from videoseal_tpu_torch.augmentation.validation import get_validation_augs
+    from videoseal_tpu_torch.evals.full import evaluate, synthetic_samples
+    from videoseal_tpu_torch.utils.timing import timed
+    from videoseal_tpu_torch.ops import metrics
+
+    # PyTorch's defaults (earlier phases turned TF32 off): the attacks must
+    # not depend on them (the DCT and the blur are elementwise float32)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    rec = {"card_vs_cpu": _attacks_card_vs_cpu(dev)}
+    model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
+    blocks = sum(len(stage) for stage in model.extractor.convnext.stages)   # 18
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    # the image grid
+    imgs = next(synthetic_samples(1, (F_ATTACK_IMAGES, H, W, 3), seed=22))
+    grid = get_validation_augs(False)
+    model.generator.manual_seed(7)   # the direct embed below draws the same messages
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = evaluate(model, [imgs], is_video=False, validation_augs=grid, verbose=False,
+                    out_csv=os.path.join(OUT_DIR, "attacks_image_grid.csv"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_rows = sum(len(s) for _, s in grid)
+    got = check_counts("attacks image grid", {"K4": 1, "K2": blocks * n_rows})
+    if len(rows) != n_rows or n_rows != 78:
+        raise AssertionError(f"the image grid gave {len(rows)} rows, expected 78")
+    rec["image_grid"] = dict(_grid_report("image grid", rows, wall, smi), launches=got)
+    ident = rows[0]
+    model.generator.manual_seed(7)
+    direct = model.embed(torch.as_tensor(imgs, device=dev))["imgs_w"]
+    direct_psnr = float(metrics.psnr(direct, torch.as_tensor(imgs, device=dev)).mean())
+    log(f"[attacks] image grid identity row: linf {ident['linf']:.3f}, psnr "
+        f"{ident['psnr']:.3f} dB against a direct embed's {direct_psnr:.3f} dB, ssim "
+        f"{ident['ssim']:.5f}, bit_acc {ident['bit_acc']:.4f} (random weights)")
+    if ident["aug"] != "Identity()" or not ident["linf"] > 0 \
+            or abs(ident["psnr"] - direct_psnr) > 0.5:
+        raise AssertionError("the image grid's identity row disagrees with a direct embed")
+    rec["image_grid"]["direct_psnr"] = direct_psnr
+
+    # the video grid, its codec rows on the rule of validation._codec
+    codecs = {a.codec: type(a).__name__ for a, _ in get_validation_augs(True)
+              if hasattr(a, "codec")}
+    why = ("the native runtime loaded" if native.available()
+           else f"the native runtime does not load: {native.last_error()}")
+    log(f"[attacks] video grid codec route: {codecs} ({why})")
+    vid = next(synthetic_samples(1, (F_ATTACK_VIDEO, *ATTACK_HW, 3), seed=23))
+    vgrid = get_validation_augs(True)
+    reset_counts()
+    t0 = time.perf_counter()
+    vrows = evaluate(model, [vid], is_video=True, validation_augs=vgrid, verbose=False,
+                     out_csv=os.path.join(OUT_DIR, "attacks_video_grid.csv"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_vrows = sum(len(s) for _, s in vgrid)
+    got = check_counts("attacks video grid", {"K4": 1, "K2": blocks * n_vrows})
+    if len(vrows) != n_vrows or n_vrows != 36:
+        raise AssertionError(f"the video grid gave {len(vrows)} rows, expected 36")
+    rec["video_grid"] = dict(_grid_report("video grid", vrows, wall, smi), launches=got,
+                             codec_route=codecs, native=native.available())
+    try:
+        A.VideoCompressionProxy(codec="h264").apply_strength(
+            torch.zeros((1, H, W, 3), device=dev), torch.ones((1, H, W, 1), device=dev), 30)
+    except ValueError as e:
+        log(f"[attacks] the proxy at {H}x{W} raises as it must: {e}")
+    else:
+        raise AssertionError(f"the codec proxy took a {H}x{W} frame (540 chroma rows)")
+
+    # the training-path augmenter: 16 draws, forward and backward
+    aug = build_augmenter(AUGS["augs_geometric"])
+    clean = torch.as_tensor(next(synthetic_samples(1, (F_AUGMENTER, 256, 256, 3), seed=24)),
+                            device=dev)
+    reset_counts()
+    imgs_w = model.embed(clean)["imgs_w"].detach().requires_grad_()
+    names = aug.aug_names(is_video=True)
+    v = torch.randn(imgs_w.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+
+    def step():
+        out, _, sel = aug(g, imgs_w, clean, is_video=True)
+        grad, = torch.autograd.grad((out * v).sum(), imgs_w)
+        return out, sel, grad
+
+    # the same 16 draws twice, timed the second time (the first pays each
+    # op's first use on the device)
+    for _ in range(2):
+        g = torch.Generator().manual_seed(0)
+        draws = []
+        for _ in range(16):
+            (out, sel, grad), secs = timed(step, imgs_w.device)
+            name = names[sel[0]]
+            finite, nonzero = bool(torch.isfinite(grad).all()), bool((grad != 0).any())
+            draws.append({"aug": name, "ms": secs * 1e3, "finite": finite,
+                          "nonzero": nonzero})
+            if not finite or (name != "identity" and not nonzero):
+                raise AssertionError(f"augmenter draw {name}: gradient finite {finite}, "
+                                     f"non-zero {nonzero}")
+    preds = model.detect(out.detach())["preds"]
+    got = check_counts("attacks augmenter", {"K4": 1, "K2": blocks})
+    if not bool(torch.isfinite(preds).all()):
+        raise AssertionError("the detect after the augmenter gave logits that are not finite")
+    log("[attacks] augmenter (augs_geometric, video pool), forward+backward per draw: "
+        + ", ".join(f"{d['aug']} {d['ms']:.2f} ms" for d in draws)
+        + f" (CUDA events) ({smi})")
+    rec["augmenter"] = {"draws": draws, "launches": got}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["launches"] = {k: sum(rec[p]["launches"][k]
+                              for p in ("image_grid", "video_grid", "augmenter"))
+                       for k in rec["augmenter"]["launches"]}
+    return rec
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -1676,12 +1909,14 @@ def main() -> int:
     rec["v0"] = phase_v0(dev, smi)
     rec["stream"] = phase_stream(dev, smi)
     rec["evals"] = phase_evals(dev, smi)
+    rec["attacks"] = phase_attacks(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
-                                            "grouped", "probes", "stream", "evals")]
+                                            "grouped", "probes", "stream", "evals",
+                                            "attacks")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

@@ -1,8 +1,8 @@
-"""Guards for the machine that serves the port, which has no jax, flax or
-yaml: the package must import and run its planar and NHWC paths, loading by
-path, streaming, the metrics and the evals without them (and without cv2,
-which the streaming path imports only where the native runtime did not
-load)."""
+"""Guards for the machine that serves the port, which has no jax, flax, yaml
+or pandas: the package must import and run its planar and NHWC paths,
+loading by path, streaming, the metrics, the attack simulator and the evals
+without them (and without cv2, which the streaming path and the exact
+codecs import only where they need it)."""
 
 import os
 import re
@@ -19,7 +19,7 @@ PKG = os.path.join(ROOT, "videoseal_tpu_torch")
 
 _SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "yaml", "videoseal_tpu", "cv2"):
+for name in ("jax", "jaxlib", "flax", "optax", "yaml", "pandas", "videoseal_tpu", "cv2"):
     sys.modules[name] = None          # any import of these now raises
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -81,6 +81,22 @@ def fill(buf):
     return n
 stats = st.run_stream(fill, (2, 64, 96, 3), st.detect_step(loaded), out.append, "cpu")
 assert stats["frames"] == 5 and stats["chunks"] == 3
+
+# the attack simulator and the robustness eval: one proxy-codec row on the
+# tiny card, and the training-path augmenter from a preset
+from videoseal_tpu_torch import augmentation
+from videoseal_tpu_torch.augmentation import augs as A
+from videoseal_tpu_torch.evals import full
+vid = next(full.synthetic_samples(1, (4, 64, 96, 3)))
+rows = full.evaluate(model, [vid], is_video=True, verbose=False,
+                     validation_augs=[(A.VideoCompressionProxy(codec="h264"), [30])],
+                     out_csv=os.path.join(tmp, "metrics.csv"))
+assert len(rows) == 1 and rows[0]["aug"].startswith("VideoCompressionProxy(")
+assert np.isfinite(rows[0]["psnr"]) and os.path.exists(os.path.join(tmp, "metrics.csv"))
+aug = augmentation.build_augmenter(augmentation.AUGS["augs_geometric"])
+imgs = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(0))
+out, mask, sel = aug(torch.Generator().manual_seed(1), imgs, imgs)
+assert out.shape == imgs.shape and len(sel) == 1
 print("OK")
 """
 
@@ -108,7 +124,7 @@ def test_native_tree_untouched():
 
 
 def test_package_source_imports_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yaml|videoseal_tpu)\b",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yaml|pandas|videoseal_tpu)\b",
                      re.MULTILINE)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))

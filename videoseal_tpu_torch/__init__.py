@@ -7,7 +7,10 @@ planar serving path (embed -> detect over padded planar u8 frames). Video
 files stream through ``inference_streaming``. Models build on the card
 unless the caller passes ``device="cpu"``, from a card name or a checkpoint
 path (``load``); ``save_npz`` writes the JAX package's checkpoint format.
-This package imports torch, numpy and scipy, never jax, flax or yaml.
+The attack simulator (``augmentation``) and the robustness eval
+(``evals.full``) run embed -> attack -> detect over the validation grids.
+This package imports torch, numpy and scipy, never jax, flax, yaml or
+pandas.
 """
 
 from .kernels.fused_planar import pack_planar, planar_shape, unpack_planar

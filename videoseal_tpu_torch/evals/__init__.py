@@ -1,2 +1,3 @@
-"""Evaluation harnesses of the port: ``speed``, ``lowres_quality`` and
-``streaming_bench`` (the rest wait for the attack simulator)."""
+"""Evaluation harnesses of the port: ``speed``, ``lowres_quality``,
+``streaming_bench``, the robustness eval ``full`` with ``step_size_eval``,
+the exact codec ``attacks``, ``vmaf`` and ``flops``."""

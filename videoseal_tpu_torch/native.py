@@ -170,21 +170,24 @@ def _out_buffer(out: np.ndarray | None, shape: tuple) -> np.ndarray:
 def video_roundtrip(frames: np.ndarray, codec: str = "h264", crf: int = 28,
                     fps: int = 24) -> np.ndarray:
     """The exact codec attack: encode and decode (F, H, W, 3) frames ([0, 1]
-    float or u8); odd sizes are padded to even. Returns float32 in [0, 1]."""
+    float or u8); an odd height is padded to even. Returns float32 in [0, 1].
+    The width must be a multiple of 16: ValueError otherwise, before any
+    call into the library (whose decoder corrupts the heap there)."""
+    f, h, w, _ = np.shape(frames)
+    if w % 16:
+        raise ValueError(f"video_roundtrip: width {w} is not a multiple of 16; the native "
+                         "decoder's RGB conversion then writes past its buffers (heap "
+                         "corruption, ROADMAP §3.10), so the port refuses it")
     lib = _lib()
     u8 = _to_u8(frames)
-    f, h, w, _ = u8.shape
-    ph, pw = h % 2, w % 2
-    if ph or pw:
-        u8 = np.pad(u8, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
+    if h % 2:
+        u8 = np.pad(u8, ((0, 0), (0, 1), (0, 0), (0, 0)), mode="edge")
     out = np.empty_like(u8)
-    n = lib.vsm_video_roundtrip(_ptr(u8), f, u8.shape[1], u8.shape[2], codec.encode(),
+    n = lib.vsm_video_roundtrip(_ptr(u8), f, u8.shape[1], w, codec.encode(),
                                 int(crf), int(fps), _ptr(out))
     if n < 0:
         raise RuntimeError(f"roundtrip failed: {lib.vsm_last_error().decode()}")
-    if ph or pw:
-        out = out[:, :h, :w]
-    return out.astype(np.float32) / 255.0
+    return out[:, :h].astype(np.float32) / 255.0
 
 
 class VideoReader:

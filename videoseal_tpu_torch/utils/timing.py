@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -20,3 +22,19 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn, device: torch.device):
+    """(fn(), seconds) of one call: CUDA events on a CUDA device, else the
+    host clock."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
