@@ -100,7 +100,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      forward and backward on 32 watermarked 256x256 images (embed K4 1) and
      a detect of the last (K2 18). Per-row attack and detect ms (CUDA
      events), the slowest five attacks, the grids' walls; rows in
-     chiprun_out/attacks_*_grid.csv.
+     chiprun_out/attacks_*_grid.csv;
+ 17. training, videoseal_1.0 at full width: train.main (8 steps at batch 16
+     on synthetic images, DEFAULT_AUGS, TensorBoard, one in-training eval:
+     K2 72, the steps none; a checkpoint) and a run resumed from it (2 steps,
+     its eval: K2 72): every logged value finite, the generator, the
+     discriminator and the BatchNorm statistics changed, the resumed run at
+     the saved step; ms a step (CUDA events, median of the steps after the
+     first two), images/s and peak memory beside the nvidia-smi line; K2 at
+     the eval's shapes (B=8, f32) against its plain version; one step's
+     parts timed (embed, downstream, backward, discriminator); one image step
+     (batch 2) and one video step (a 16-frame clip) of make_train_step on the
+     card against the CPU, balanced 0 and 1, TF32 off: losses, scales,
+     gradients, updated tensors and BatchNorm statistics. The run's log and
+     eval rows in chiprun_out/train/.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -200,6 +213,19 @@ K8_SHARE, K8_MEAN, K8_MAX = 1e-5, 1e-4, 0.5
 AUG_ATOL, JPEG_FLIP_SHARE = 1e-5, 1e-3
 F_ATTACK_IMAGES, F_ATTACK_VIDEO, F_AUGMENTER = 4, 16, 32
 ATTACK_HW = (720, 1280)   # the card-vs-CPU frames and the video grid's
+# phase 17: train.main's steps, and the card-vs-CPU video step's clip length.
+# Card against CPU, both float32 with TF32 off, from the same weights and
+# messages, SGD at lr 1: the losses and scales agree to ~3e-7 relative. The
+# gradients do not agree better than convolution algorithms in float32 do:
+# the embedder's (8 bottleneck blocks at 384 channels, BatchNorm) lie up to
+# 8.3e-3 of its largest gradient from the CPU's, and on the CPU alone
+# oneDNN's convolutions and the native ones differ by 6.4e-3 of it (measured
+# at this width); so gradients are held to TRAIN_GRAD_RTOL of their module's
+# largest, the updated tensors (p - grad) to that of the largest gradient
+# plus TRAIN_PARAM_ATOL (p's rounding; the balance makes the gradients
+# ~1e2), the BatchNorm statistics to TRAIN_BN_ATOL
+TRAIN_STEPS, F_TRAIN_CLIP = 8, 16
+TRAIN_LOG_RTOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_ATOL, TRAIN_BN_ATOL = 1e-4, 3e-2, 1e-6, 1e-3
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -1808,6 +1834,241 @@ def phase_attacks(dev, smi: str) -> dict:
     return rec
 
 
+
+# -- phase 17: training -------------------------------------------------------------
+
+def _train_cases_card_vs_cpu(dev) -> dict:
+    """One image step (batch 2) and one video step (one clip of 16 frames) of
+    make_train_step at videoseal_1.0's full width, balanced 0 and 1, from the
+    same weights on the card and on the CPU: the dummy augmenter, injected
+    messages, SGD at lr 1 (so each updated tensor is p - grad), TF32 off."""
+    import dataclasses
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
+    from videoseal_tpu_torch.parallel.trainer import create_train_state, make_train_step
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = False, False
+    s = 256
+    rng = np.random.default_rng(17)
+    cases = {"image": rng.uniform(0, 1, (2, s, s, 3)).astype(np.float32),
+             "video": rng.uniform(0, 1, (1, F_TRAIN_CLIP, s, s, 3)).astype(np.float32)}
+    msgs = torch.as_tensor(rng.integers(0, 2, (2, 256)))
+    out, worst = {}, {"logs": 0.0, "grads": 0.0, "params": 0.0, "bn": 0.0}
+    for balanced in (0, 1):
+        args = train.get_parser().parse_args(["--balanced", str(balanced)])
+        for kind, imgs in cases.items():
+            res = {}
+            for where in (dev, torch.device("cpu")):
+                mods, _, _ = train.build_trainer(args, where)
+                mods = dataclasses.replace(mods, augmenter=get_dummy_augmenter())
+                state = create_train_state(mods, "SGD,lr=1.0", "SGD,lr=1.0")
+                step = make_train_step(mods, is_video=kind == "video")
+                t0 = time.perf_counter()
+                _, logs = step(state, {"imgs": torch.as_tensor(imgs, device=where)},
+                               torch.Generator().manual_seed(0), msgs=msgs[:imgs.shape[0]])
+                if where.type == "cuda":
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                mods_ = (state.embedder, state.extractor, state.discriminator)
+                res[where.type] = {
+                    "secs": secs, "logs": {k: float(v) for k, v in logs.items()},
+                    "grads": {f"{i}.{n}": p.grad.detach().cpu() for i, m in enumerate(mods_)
+                              for n, p in m.named_parameters()},
+                    "params": {f"{i}.{n}": p.detach().cpu() for i, m in enumerate(mods_)
+                               for n, p in m.named_parameters()},
+                    "bn": {n: b.detach().cpu() for n, b in state.embedder.named_buffers()
+                           if n.endswith(("running_mean", "running_var"))}}
+            card, cpu = res["cuda"], res["cpu"]
+            # each gradient's error against its module's largest gradient: a
+            # bias before a GroupNorm has gradients that are mostly
+            # cancellation, so its own largest is no scale for its error
+            scale = {m: max(float(g.abs().max()) for k, g in cpu["grads"].items()
+                            if k.startswith(m)) for m in ("0.", "1.", "2.")}
+            gerr = {k: float((card["grads"][k] - g).abs().max()) / scale[k[:2]]
+                    for k, g in cpu["grads"].items()}
+            own = {k: float((card["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for k, g in cpu["grads"].items()}
+            err = {"logs": max(abs(card["logs"][k] - v) / max(abs(v), 1e-6)
+                               for k, v in cpu["logs"].items()),
+                   "grads": max(gerr.values()),
+                   "params": max(float((card["params"][k] - p).abs().max())
+                                 for k, p in cpu["params"].items()),
+                   "bn": max(float((card["bn"][k] - b).abs().max()) for k, b in cpu["bn"].items())}
+            tag = f"{kind}, balanced {balanced}"
+            log(f"[train] card vs CPU, {tag}: losses/scales rel {err['logs']:.2e}, grads (of "
+                f"the module's largest) {err['grads']:.2e} (at {max(gerr, key=gerr.get)}; "
+                f"0 embedder, 1 extractor, 2 discriminator; of its own largest at most "
+                f"{max(own.values()):.2e} at {max(own, key=own.get)}), updated params abs "
+                f"{err['params']:.2e}, BN stats abs {err['bn']:.2e}; CPU step "
+                f"{cpu['secs']:.1f} s, card step {card['secs'] * 1e3:.1f} ms (first)")
+            if (err["logs"] > TRAIN_LOG_RTOL or err["grads"] > TRAIN_GRAD_RTOL
+                    or err["bn"] > TRAIN_BN_ATOL
+                    or err["params"] > TRAIN_GRAD_RTOL * max(scale.values()) + TRAIN_PARAM_ATOL
+                    or not all(math.isfinite(v) for v in card["logs"].values())):
+                raise AssertionError(f"train step, card against CPU, {tag}: {err}")
+            out[tag] = err
+            for k in worst:
+                worst[k] = max(worst[k], err[k])
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"cases": out, "worst": worst}
+
+
+def _train_split(dev) -> dict:
+    """The parts of one batch-16 step at full width, each between CUDA events
+    in stream order (the host runs ahead, so each span is the device's time
+    for that part): embed (the forward with the BatchNorm update), downstream
+    (blend, JND, augmenter, resize, extractor, losses), backward with the
+    generator's update, the discriminator's step. Mirrors make_train_step at
+    balanced 0 (train.py's default) with DEFAULT_AUGS."""
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.ops.resize import resize_bilinear
+    from videoseal_tpu_torch.parallel.trainer import _frozen, embed_batch, watermark
+    args = train.get_parser().parse_args([])
+    mods, state, _ = train.build_trainer(args, dev)
+    imgs = torch.rand((16, 256, 256, 3), generator=torch.Generator().manual_seed(5)).to(dev)
+    msgs = torch.randint(0, 2, (16, 256), generator=torch.Generator().manual_seed(6)).to(dev)
+    gen = torch.Generator().manual_seed(7)
+    spans = {k: [] for k in ("embed", "downstream", "backward", "disc")}
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        state.opt_g.zero_grad(set_to_none=True)
+        state.opt_d.zero_grad(set_to_none=True)
+        ev[0].record()
+        preds_w, mf = embed_batch(mods, state.embedder, imgs, msgs, False)
+        ev[1].record()
+        imgs_w = watermark(mods, imgs, preds_w, state.scaling_w)
+        aug, mask, _ = mods.augmenter(gen, imgs_w, imgs, None, is_video=False, train=True)
+        preds = state.extractor(resize_bilinear(aug, 256, 256)) / mods.temperature
+        losses, weights = mods.loss.generator_losses(imgs, imgs_w, mask, mf, preds,
+                                                     _frozen(state.discriminator), 0)
+        total, _ = mods.loss.combine(losses, weights, None)
+        ev[2].record()
+        total.backward()
+        state.opt_g.step()
+        ev[3].record()
+        d_loss, _ = mods.loss.discriminator_loss(state.discriminator, imgs, imgs_w, 0)
+        d_loss.backward()
+        state.opt_d.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(spans):
+            spans[k].append(ev[i].elapsed_time(ev[i + 1]))
+    # the first two pay cuDNN's first calls; the augmenter draws differ a step
+    return {k: float(np.median(v[2:])) for k, v in spans.items()}
+
+
+def phase_train(dev, smi: str) -> dict:
+    """videoseal_1.0 trained on the card through train.main: 8 steps at batch
+    16 on synthetic images, one in-training eval (K2, 18 blocks a row of the
+    subset grid), TensorBoard, a checkpoint; then a run resumed from it for
+    2 more steps (and its eval). Then the card against the CPU on one image
+    and one video step at full width, K2 at the eval's shapes against its
+    plain version, and the step's parts timed."""
+    import shutil
+    import tempfile
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.kernels import convnext_block as cb
+    # the run's directory is temporary: its checkpoint (~0.4 GB with AdamW's
+    # moments) is too large to keep among the script's outputs; the log and
+    # the eval rows are copied to OUT_DIR/train
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    out = os.path.join(tmp.name, "run")
+    # the timed steps run at PyTorch's defaults: TF32 in cuDNN's convolutions,
+    # not in matmuls
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    log("[train] TF32: cudnn.allow_tf32=True, cuda.matmul.allow_tf32=False (PyTorch's "
+        "defaults) for train.main; both off for the card-vs-CPU steps")
+    common = ["--card", "videoseal_1.0", "--synthetic", "1", "--batch_size", "16",
+              "--eval_freq", "1", "--tensorboard", "1", "--output_dir", out]
+    blocks = sum(DEPTHS)
+    rows = 4                      # the subset grid's image rows, one mask
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, logger, step_ms = train.main(common + ["--steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = check_counts("train", {"K2": rows * blocks})
+    ckpt = os.path.join(out, "checkpoint.npz")
+    with np.load(ckpt) as data:
+        saved_step = int(data["step"])
+    if state.step != TRAIN_STEPS or saved_step != TRAIN_STEPS:
+        raise AssertionError(f"train: state at step {state.step}, checkpoint {saved_step}")
+    logged = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
+    evals = [json.loads(ln) for ln in open(os.path.join(out, "eval.jsonl"))]
+    if not logged or not all(math.isfinite(v) for r in logged for v in r.values()):
+        raise AssertionError(f"train: a logged value is not finite: {logged}")
+    if len(evals) != 1 or not all(math.isfinite(v) for k, v in evals[0].items()
+                                  if k != "modality"):
+        raise AssertionError(f"train: eval rows {evals}")
+    tb = os.listdir(os.path.join(out, "tensorboard"))
+    if not tb:
+        raise AssertionError("train: no TensorBoard event file")
+    # what moved: the generator, the discriminator, the BatchNorm statistics
+    args = train.get_parser().parse_args(common + ["--steps", str(TRAIN_STEPS)])
+    _, fresh, _ = train.build_trainer(args, dev)
+    moved = {}
+    for name, a, b in (("embedder", state.embedder, fresh.embedder),
+                       ("extractor", state.extractor, fresh.extractor),
+                       ("discriminator", state.discriminator, fresh.discriminator)):
+        pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+        moved[name] = sum(not torch.equal(pa[k], pb[k]) for k in pa) / len(pa)
+    ba, bb = dict(state.embedder.named_buffers()), dict(fresh.embedder.named_buffers())
+    stats = [k for k in ba if k.endswith(("running_mean", "running_var"))]
+    moved["bn_stats"] = sum(not torch.equal(ba[k], bb[k]) for k in stats) / len(stats)
+    if min(moved.values()) < 0.5:
+        raise AssertionError(f"train: share of tensors that changed {moved}")
+    del fresh
+    # resume for 2 more steps (and the eval at its epoch's end)
+    reset_counts()
+    state2, _, _ = train.main(common + ["--steps", "2", "--resume", ckpt])
+    got_resume = check_counts("train resume", {"K2": rows * blocks})
+    if state2.step != TRAIN_STEPS + 2:
+        raise AssertionError(f"train: the resumed run ended at step {state2.step}")
+    del state, state2
+    torch.cuda.empty_cache()
+    keep = os.path.join(OUT_DIR, "train")
+    os.makedirs(keep, exist_ok=True)
+    for f in ("log.txt", "eval.jsonl"):
+        shutil.copy(os.path.join(out, f), keep)
+    tmp.cleanup()
+
+    timed_ms = step_ms[2:]
+    med = float(np.median(timed_ms))
+    log(f"[train] {smi} | videoseal_1.0 full width, batch 16 at 256x256, DEFAULT_AUGS: "
+        f"{med:.2f} ms a step (CUDA events, median of steps 3-{TRAIN_STEPS}: "
+        f"{[round(t, 2) for t in timed_ms]}; the first two {[round(t, 1) for t in step_ms[:2]]}), "
+        f"{16e3 / med:.1f} images/s, peak memory {peak_gib:.2f} GiB; main() wall "
+        f"{wall:.1f} s; K2 {got['K2']} launches in the in-training eval, {got_resume['K2']} in "
+        f"the resumed run's; checkpoint at step {saved_step}, resumed to {TRAIN_STEPS + 2}; "
+        f"tensors changed {moved}")
+
+    # K2 at the in-training eval's shapes (8 float32 images at 256x256)
+    worst = 0.0
+    for i, (h, w, c) in enumerate(STAGES):
+        p = cb.kernel_params(_random_block(c, 40 + i, dev, torch.float32))
+        x = torch.randn((8, h, w, c), generator=torch.Generator(device=dev).manual_seed(i),
+                        device=dev)
+        a, ref = cb.convnext_block_fused(x, p).float(), cb.convnext_block_plain(x, p).float()
+        err = (a - ref).abs()
+        if not bool(torch.isfinite(a).all()) or bool((err > K2_ATOL + K2_RTOL * ref.abs()).any()):
+            raise AssertionError(f"K2 disagrees with its plain version at 8x{h}x{w}x{c} f32")
+        worst = max(worst, float(err.max()))
+    log(f"[train] K2 at the eval's shapes (B=8, f32) against its plain version: max abs err "
+        f"{worst:.3e}")
+    split = _train_split(dev)
+    log(f"[train] {smi} | one batch-16 step's parts (median of 4, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"; sum {sum(split.values()):.2f}")
+    vs_cpu = _train_cases_card_vs_cpu(dev)
+    return {"launches": {k: got[k] + got_resume[k] for k in got}, "step_ms": step_ms,
+            "median_ms": med, "images_per_s": 16e3 / med, "peak_gib": peak_gib,
+            "wall_s": wall, "moved": moved, "k2_eval_max_abs_err": worst, "split_ms": split,
+            "card_vs_cpu": vs_cpu, "evals": evals[0], "log": logged}
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -1910,13 +2171,14 @@ def main() -> int:
     rec["stream"] = phase_stream(dev, smi)
     rec["evals"] = phase_evals(dev, smi)
     rec["attacks"] = phase_attacks(dev, smi)
+    rec["train"] = phase_train(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
-                                            "attacks")]
+                                            "attacks", "train")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

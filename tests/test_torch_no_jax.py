@@ -1,6 +1,7 @@
 """Guards for the machine that serves the port, which has no jax, flax, yaml
 or pandas: the package must import and run its planar and NHWC paths,
-loading by path, streaming, the metrics, the attack simulator and the evals
+loading by path, streaming, the metrics, the attack simulator, the evals,
+the losses and a few training steps (and the training entry point's --help)
 without them (and without cv2, which the streaming path and the exact
 codecs import only where they need it)."""
 
@@ -19,7 +20,8 @@ PKG = os.path.join(ROOT, "videoseal_tpu_torch")
 
 _SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "yaml", "pandas", "videoseal_tpu", "cv2"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pandas", "videoseal_tpu",
+             "cv2"):
     sys.modules[name] = None          # any import of these now raises
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -97,8 +99,28 @@ aug = augmentation.build_augmenter(augmentation.AUGS["augs_geometric"])
 imgs = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(0))
 out, mask, sel = aug(torch.Generator().manual_seed(1), imgs, imgs)
 assert out.shape == imgs.shape and len(sel) == 1
+
+# training: the losses, the discriminators, the step and the entry point
+from videoseal_tpu_torch import train
+from videoseal_tpu_torch.data import datasets, loader, transforms  # noqa: F401
+from videoseal_tpu_torch.evals import intrain  # noqa: F401
+from videoseal_tpu_torch.losses import lpips, perceptual, videosealloss, watson_fft  # noqa: F401
+from videoseal_tpu_torch.modules import discriminator  # noqa: F401
+from videoseal_tpu_torch.parallel import trainer  # noqa: F401
+from videoseal_tpu_torch.utils import display, logger, optim, tensorboard  # noqa: F401
+assert float(perceptual.build_perceptual_loss("0.5_mse+yuv+watson_dft")(imgs, out)) > 0
+state, _, step_ms = train.main(["--device", "cpu", "--tiny", "1", "--synthetic", "1",
+                                "--steps", "2", "--batch_size", "2", "--img_size", "64",
+                                "--eval_freq", "0", "--output_dir", os.path.join(tmp, "train")])
+assert state.step == 2 and len(step_ms) == 2
+assert os.path.exists(os.path.join(tmp, "train", "checkpoint.npz"))
 print("OK")
 """
+
+_BLOCK = ("import sys\n"
+          "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'pandas',"
+          " 'videoseal_tpu', 'cv2'):\n"
+          "    sys.modules[name] = None\n")
 
 
 def test_slice_runs_without_jax_flax_yaml():
@@ -108,6 +130,18 @@ def test_slice_runs_without_jax_flax_yaml():
         capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_train_help_without_jax_flax_yaml():
+    """`python -m videoseal_tpu_torch.train --help` with jax, flax, optax,
+    orbax's host packages, yaml and the JAX package unimportable."""
+    code = (_BLOCK + "import runpy\n"
+            "sys.argv = ['videoseal_tpu_torch.train', '--help']\n"
+            "runpy.run_module('videoseal_tpu_torch.train', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "--device" in proc.stdout and "--perceptual_loss" in proc.stdout
 
 
 def test_native_tree_untouched():
@@ -124,7 +158,8 @@ def test_native_tree_untouched():
 
 
 def test_package_source_imports_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yaml|pandas|videoseal_tpu)\b",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|yaml|pandas|"
+                     r"videoseal_tpu)\b",
                      re.MULTILINE)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))

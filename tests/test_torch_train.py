@@ -1,0 +1,463 @@
+"""The port's training path against the JAX package's on the CPU.
+
+* One `make_train_step` of each package from the same weights (carried by
+  the weight bridge) and the same messages (JAX's draws injected), with the
+  dummy augmenter: images with balanced 0 and 1 and every mode, video with
+  balanced 1. Both sides step with SGD at lr 1, so JAX's gradient is the
+  parameters' change; the port's is each parameter's .grad. Held: the
+  logged losses, scales and metrics, every gradient of the generator and
+  the discriminator, the BatchNorm statistics and the updated parameters.
+* The optimizers and lr schedules against optax on the same given
+  gradients over 5 steps.
+* `train.main` on the CPU at the tiny card: log, eval rows, TensorBoard
+  events and a checkpoint, then a resume from it.
+
+Tolerances: both steps are float32 on the CPU; the convolutions and matmuls
+sum in other orders, so values agree to ~1e-6 relative. Gradients are held
+to GRAD_RTOL of each tensor's largest gradient plus GRAD_ATOL (the
+recovered JAX gradient p_old - p_new carries one float32 rounding of |p|,
+~1e-8; a bias before a GroupNorm has gradients that are mostly
+cancellation, ~1e-3 with errors of a few 1e-7).
+"""
+
+import copy
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from torch_port import _randomize
+
+torch.set_num_threads(4)
+
+NBITS, SIZE = 8, 64
+LOG_RTOL, LOG_ATOL = 1e-4, 1e-6
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+JAX_COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
+PARAM_ATOL = 1e-6
+
+EMB_CFG = {"msg_processor": {"msg_processor_type": "binary+concat"},
+           "unet": {"in_channels": 1, "out_channels": 1, "z_channels": 4, "num_blocks": 1,
+                    "activation": "relu", "normalization": "batch",
+                    "z_channels_mults": [1, 2], "last_tanh": True}}
+EXT_CFG = {"encoder": {"depths": [1, 1, 1, 1], "dims": [8, 16, 32, 64]},
+           "pixel_decoder": {"pixelwise": False, "upscale_stages": [1], "embed_dim": 64,
+                             "sigmoid_output": False}}
+
+
+def _jax_mods(balanced: bool):
+    from videoseal_tpu.augmentation.augmenter import get_dummy_augmenter
+    from videoseal_tpu.losses.videosealloss import VideoSealLoss
+    from videoseal_tpu.models.embedder import build_embedder
+    from videoseal_tpu.models.extractor import build_extractor
+    from videoseal_tpu.models.videoseal import PipelineConfig
+    from videoseal_tpu.modules.discriminator import NLayerDiscriminator
+    from videoseal_tpu.modules.jnd import JND
+    from videoseal_tpu.parallel.trainer import TrainerModules
+
+    emb = build_embedder("unet_tiny_yuv", EMB_CFG, NBITS, 2)
+    ext = build_extractor("convnext_tiny", EXT_CFG, SIZE, NBITS)
+    return TrainerModules(
+        embedder=emb.module, extractor=ext.module,
+        discriminator=NLayerDiscriminator(ndf=8, n_layers=2), augmenter=get_dummy_augmenter(),
+        attenuation=JND(), cfg=PipelineConfig(img_size=SIZE, chunk_size=4, step_size=2,
+                                              yuv=True, nbits=NBITS),
+        loss=VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
+                           decode_weight=1.0, detect_weight=0.0),
+        balanced=balanced)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """The tiny card's JAX variables (BN statistics and GRN randomised) and
+    the discriminator's, as numpy: the port's seeded init carried over by
+    the weight bridge (a JAX init would compile for ~15 s)."""
+    from videoseal_tpu_torch.models.embedder import build_embedder
+    from videoseal_tpu_torch.models.extractor import build_extractor
+    from videoseal_tpu_torch.models.videoseal import init_weights
+    from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
+    from videoseal_tpu_torch.utils.convert import disc_to_jax, to_jax_variables
+    emb = build_embedder("unet_tiny_yuv", EMB_CFG, NBITS, 2).module
+    ext = build_extractor("convnext_tiny", EXT_CFG, SIZE, NBITS).module
+    disc = NLayerDiscriminator(ndf=8, n_layers=2)
+    gen = torch.Generator().manual_seed(0)
+    for m in (emb, ext, disc):
+        init_weights(m, gen)
+    ev, xv = to_jax_variables(emb.state_dict(), ext.state_dict())
+    rng = np.random.default_rng(5)
+    return _randomize(ev, rng), _randomize(xv, rng), disc_to_jax(disc.state_dict())
+
+
+def _port_sds(ev, xv, dv):
+    from videoseal_tpu_torch.utils.convert import disc_from_jax, from_jax_variables
+    emb, ext = from_jax_variables(ev, xv)
+    return emb, ext, disc_from_jax(dv)
+
+
+def _port_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0"):
+    from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
+    from videoseal_tpu_torch.losses.videosealloss import VideoSealLoss
+    from videoseal_tpu_torch.models.embedder import build_embedder
+    from videoseal_tpu_torch.models.extractor import build_extractor
+    from videoseal_tpu_torch.models.videoseal import PipelineConfig
+    from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
+    from videoseal_tpu_torch.modules.jnd import JND
+    from videoseal_tpu_torch.parallel.trainer import TrainerModules, create_train_state
+
+    emb = build_embedder("unet_tiny_yuv", EMB_CFG, NBITS, 2).module
+    ext = build_extractor("convnext_tiny", EXT_CFG, SIZE, NBITS).module
+    disc = NLayerDiscriminator(ndf=8, n_layers=2)
+    esd, xsd, dsd = _port_sds(*weights)
+    emb.load_state_dict(esd)
+    ext.load_state_dict(xsd)
+    disc.load_state_dict(dsd)
+    mods = TrainerModules(
+        embedder=emb, extractor=ext, discriminator=disc, augmenter=get_dummy_augmenter(),
+        attenuation=JND(), cfg=PipelineConfig(img_size=SIZE, chunk_size=4, step_size=2,
+                                              yuv=True, nbits=NBITS),
+        loss=VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
+                           decode_weight=1.0, detect_weight=0.0),
+        balanced=balanced)
+    return mods, create_train_state(mods, opt, opt)
+
+
+def _jax_step(weights, balanced, is_video, mode, imgs, seed):
+    """JAX's step with SGD at lr 1: (logs, new variables as numpy, msgs)."""
+    from videoseal_tpu.parallel.trainer import TrainState, make_train_step
+    ev, xv, dv = weights
+    mods = _jax_mods(balanced)
+    og, od = optax.sgd(1.0), optax.sgd(1.0)
+    # create_train_state's fields, built here from the given variables (its
+    # eager discriminator init would cost ~8 s)
+    gen = {"embedder": ev["params"], "extractor": xv["params"]}
+    state = TrainState(step=jnp.zeros((), jnp.int32), embedder_params=ev["params"],
+                       embedder_stats=ev["batch_stats"], extractor_params=xv["params"],
+                       disc_params=dv["params"], opt_state_g=og.init(gen),
+                       opt_state_d=od.init(dv["params"]), scaling_w=jnp.float32(0.2))
+    key = jax.random.PRNGKey(seed)
+    msgs = np.asarray(jax.random.randint(jax.random.split(key)[0], (imgs.shape[0], NBITS), 0, 2))
+    batch = {"imgs": jnp.asarray(imgs)}
+    # XLA's backend at level 0 compiles the step in about half the time
+    step = make_train_step(mods, og, od, is_video=is_video, mode=mode).lower(
+        state, batch, key).compile(JAX_COMPILE_OPTIONS)
+    new, logs = step(state, batch, key)
+    new = jax.tree_util.tree_map(np.asarray, new)
+    return ({k: float(v) for k, v in logs.items()},
+            ({"params": new.embedder_params, "batch_stats": new.embedder_stats},
+             {"params": new.extractor_params}, {"params": new.disc_params}), msgs)
+
+
+# On the video path JAX's float32 gradients of the embedder lie up to
+# 1.8e-2 (of each tensor's largest) from a float64 run of the same JAX step
+# (balanced and not), while the port's float32 gradients lie within 1.4e-5
+# of the port's own float64 run (measured on the two video cases below, the
+# resizes kept in float64): there the gradients are held to
+# GRAD_RTOL_VIDEO, the error of the reference.
+GRAD_RTOL_VIDEO = 3e-2
+CASES = [  # (is_video, balanced, mode)
+    (False, True, "both"),
+    (False, False, "gen"),
+    (True, False, "both"),
+    (True, True, "both"),
+    (False, True, "disc"),
+]
+
+
+@pytest.mark.parametrize("is_video,balanced,mode", CASES)
+def test_train_step_matches_jax(weights, is_video, balanced, mode):
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    rng = np.random.default_rng(11)
+    # one clip of 4 frames (2 key frames): XLA's CPU reductions sum float32
+    # in order, so JAX's BatchNorm gradients drift from a float64 reference
+    # as N*H*W grows (7e-5 relative at 3 64x64 inputs, 7e-3 at 10; the
+    # port's stay within 2e-5 at 10)
+    shape = (1, 4, SIZE, SIZE, 3) if is_video else (3, SIZE, SIZE, 3)
+    imgs = rng.uniform(0, 1, shape).astype(np.float32)
+    jlogs, jnew, msgs = _jax_step(weights, balanced, is_video, mode, imgs, seed=3)
+
+    mods, state = _port_mods(weights, balanced)
+    step = make_train_step(mods, is_video=is_video, mode=mode)
+    _, plogs = step(state, {"imgs": torch.from_numpy(imgs)}, torch.Generator().manual_seed(0),
+                    msgs=torch.from_numpy(msgs.copy()))
+    assert state.step == 1
+    assert set(jlogs) == set(plogs), (sorted(jlogs), sorted(plogs))
+    for k, v in jlogs.items():
+        np.testing.assert_allclose(float(plogs[k]), v, rtol=LOG_RTOL, atol=LOG_ATOL, err_msg=k)
+    if balanced and mode != "disc":
+        assert {"scale_percep", "scale_disc", "scale_decode"} <= set(plogs)
+
+    old = _port_sds(*weights)
+    new = _port_sds(*jnew)
+    modules = (state.embedder, state.extractor, state.discriminator)
+    stepped = (mode != "disc", mode != "disc", mode != "gen")
+    for mod, o, n, moved in zip(modules, old, new, stepped):
+        for name, p in mod.named_parameters():
+            want_g = (o[name] - n[name]).numpy()
+            if not moved:
+                assert p.grad is None, name
+                assert not want_g.any(), name
+                continue
+            rtol = GRAD_RTOL_VIDEO if is_video else GRAD_RTOL
+            tol = rtol * float(np.abs(want_g).max()) + GRAD_ATOL
+            np.testing.assert_allclose(p.grad.numpy(), want_g, rtol=0, atol=tol, err_msg=name)
+            # at lr 1 the update is the gradient: its tolerance plus a rounding of p
+            np.testing.assert_allclose(p.detach().numpy(), n[name].numpy(), rtol=0,
+                                       atol=tol + PARAM_ATOL, err_msg=name)
+    # the BatchNorm statistics move in every mode (the embedder runs in train mode)
+    bufs = dict(state.embedder.named_buffers())
+    stats = [k for k in bufs if k.endswith(("running_mean", "running_var"))]
+    assert stats
+    for k in stats:
+        assert not torch.equal(bufs[k], old[0][k]), k
+        np.testing.assert_allclose(bufs[k].numpy(), new[0][k].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_batchnorm_running_var_is_biased():
+    """The port's BatchNorm updates its running variance with the biased
+    batch variance (flax's), not torch's unbiased one (n/(n-1) larger)."""
+    from videoseal_tpu_torch.modules.common import make_norm
+    x = torch.from_numpy(np.random.default_rng(0).normal(2.0, 3.0, (2, 4, 3, 5))
+                         .astype(np.float32))
+    bn = make_norm("batch", 4).train()
+    ref = torch.nn.BatchNorm2d(4, eps=1e-5).train()
+    torch.testing.assert_close(bn(x), ref(x))
+    n = x.numel() // 4
+    var = x.var(dim=(0, 2, 3), correction=0)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var)
+    torch.testing.assert_close(ref.running_var - 0.9, (bn.running_var - 0.9) * n / (n - 1))
+    torch.testing.assert_close(bn.running_mean, ref.running_mean)
+
+
+def test_intrain_eval_matches_jax(weights):
+    """The in-training eval on the same state, images and messages as JAX's
+    make_intrain_eval (identity grid): PSNR and SSIM within 1e-4; the bit
+    accuracy of the identity row equal but for bits whose JAX logit lies
+    within LOGIT_ATOL of 0 (the port detects through K2's plain version,
+    bf16 inside: ROADMAP §3.20)."""
+    from torch_port import LOGIT_ATOL
+    from videoseal_tpu.evals.intrain import make_intrain_eval as jax_eval
+    from videoseal_tpu.parallel.trainer import TrainState
+    from videoseal_tpu_torch.evals.intrain import make_intrain_eval
+    ev, xv, dv = weights
+    jmods = _jax_mods(False)
+    jstate = TrainState(step=jnp.zeros((), jnp.int32), embedder_params=ev["params"],
+                        embedder_stats=ev["batch_stats"], extractor_params=xv["params"],
+                        disc_params=dv["params"], opt_state_g=None, opt_state_d=None,
+                        scaling_w=jnp.float32(0.2))
+    imgs = np.random.default_rng(12).uniform(0, 1, (3, SIZE, SIZE, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    want, jimgs_w = jax_eval(jmods, eval_augs="identity")(jstate, imgs, key)
+    msgs = np.asarray(jax.random.randint(key, (3, NBITS), 0, 2))
+    mods, state = _port_mods(weights, False)
+    got, imgs_w = make_intrain_eval(mods, eval_augs="identity")(
+        state, imgs, torch.Generator(), msgs=torch.from_numpy(msgs.copy()))
+    assert set(got) == set(want) == {"psnr", "ssim", "bit_acc_identity_0"}
+    np.testing.assert_allclose(imgs_w.numpy(), np.asarray(jimgs_w), atol=1e-6)
+    for k in ("psnr", "ssim"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+    # the JAX logits of the identity row decide which bits may flip
+    jlogits = np.asarray(jmods.extractor.apply({"params": xv["params"]},
+                                               jnp.asarray(jimgs_w)))[:, 1:]
+    unsure = float((np.abs(jlogits) < LOGIT_ATOL).mean())
+    assert abs(got["bit_acc_identity_0"] - want["bit_acc_identity_0"]) <= unsure
+    assert state.embedder.training            # back in train mode
+
+
+# -- optimizers and schedules against optax ----------------------------------------
+
+def _optax_run(tx, params, grads):
+    st = tx.init(params)
+    out = []
+    for g in grads:
+        upd, st = tx.update(g, st, params)
+        params = optax.apply_updates(params, upd)
+        out.append(np.asarray(params))
+    return out
+
+
+OPTIMIZERS = [
+    ("AdamW,lr=1e-2", lambda sched: optax.adamw(sched or 1e-2, weight_decay=1e-2)),
+    ("AdamW,lr=1e-2,weight_decay=0.1,beta1=0.8",
+     lambda sched: optax.adamw(sched or 1e-2, b1=0.8, weight_decay=0.1)),
+    ("Adam,lr=1e-2", lambda sched: optax.adam(sched or 1e-2)),
+    ("SGD,lr=1e-1", lambda sched: optax.sgd(sched or 1e-1)),
+    ("SGD,lr=1e-1,momentum=0.9", lambda sched: optax.sgd(sched or 1e-1, momentum=0.9)),
+]
+SCHEDULES = [None, "CosineLRScheduler,lr_min=1e-4,t_initial=3,warmup_lr_init=1e-5,warmup_t=1",
+             "StepLRScheduler,decay_t=1,decay_rate=0.5"]
+
+
+@pytest.mark.parametrize("spec,make", OPTIMIZERS)
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_optimizer_matches_optax(spec, make, schedule):
+    from videoseal_tpu.utils.optim import build_lr_schedule as jax_schedule
+    from videoseal_tpu_torch.utils.optim import (build_lr_schedule, build_optimizer,
+                                                 lr_scheduler, parse_params)
+    rng = np.random.default_rng(2)
+    p0 = rng.normal(0, 1, (6, 5)).astype(np.float32)
+    grads = [rng.normal(0, 1, p0.shape).astype(np.float32) for _ in range(5)]
+    base = parse_params(spec)["lr"]
+    jsched = jax_schedule(schedule, 2, base) if schedule else None
+    want = _optax_run(make(jsched), jnp.asarray(p0), [jnp.asarray(g) for g in grads])
+
+    p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = build_optimizer(spec, [p])
+    sched = lr_scheduler(opt, build_lr_schedule(schedule, 2, base)) if schedule else None
+    for i, g in enumerate(grads):
+        if schedule:   # optax's curves in float32: one rounding of the peak lr
+            np.testing.assert_allclose(opt.param_groups[0]["lr"], float(jsched(i)), rtol=1e-6,
+                                       atol=2 ** -23 * base)
+        p.grad = torch.from_numpy(g)
+        opt.step()
+        if sched:
+            sched.step()
+        np.testing.assert_allclose(p.detach().numpy(), want[i], rtol=1e-5, atol=1e-6)
+
+
+def test_unported_optimizers_raise():
+    from videoseal_tpu_torch.utils.optim import build_optimizer
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    for name in ("lamb", "adafactor"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+            build_optimizer(f"{name},lr=1e-3", p)
+
+
+def test_scaling_schedule_matches_jax():
+    from videoseal_tpu.utils.optim import ScalingSchedule as J
+    from videoseal_tpu_torch.utils.optim import ScalingSchedule as P
+    for spec in ("Linear,scaling_min=0.05,start_epoch=2,epochs=4",
+                 "Cosine,scaling_min=0.1,epochs=3"):
+        j, p = J(spec, 0.2), P(spec, 0.2)
+        for e in range(9):
+            assert p(e) == pytest.approx(j(e), rel=1e-12), (spec, e)
+
+
+# -- the entry point ---------------------------------------------------------------
+
+def test_train_main_cpu(tmp_path):
+    """`--device cpu --tiny 1 --steps 3 --eval_freq 1`: log.txt, eval.jsonl,
+    TensorBoard events, snapshots and checkpoint.npz; a resume restores the
+    step, the modules and the optimizers, then runs 2 more steps."""
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.utils import checkpoint as ckpt_io
+    out = str(tmp_path / "run")
+    common = ["--device", "cpu", "--tiny", "1", "--synthetic", "1", "--batch_size", "2",
+              "--eval_freq", "1", "--output_dir", out, "--img_size", "64"]
+    state, logger, step_ms = train.main(common + ["--steps", "3"])
+    assert state.step == 3 and len(step_ms) == 3
+    for f in ("log.txt", "eval.jsonl", "checkpoint.npz"):
+        assert os.path.exists(os.path.join(out, f)), f
+    log = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
+    assert log[0]["step"] == 0 and all(np.isfinite(v) for v in log[0].values())
+    rows = [json.loads(ln) for ln in open(os.path.join(out, "eval.jsonl"))]
+    assert len(rows) == 1 and rows[0]["step"] == 3 and "bit_acc_identity_0" in rows[0]
+    tb = os.listdir(os.path.join(out, "tensorboard"))
+    assert tb and os.path.getsize(os.path.join(out, "tensorboard", tb[0])) > 0
+    assert len(os.listdir(os.path.join(out, "snapshots"))) == 6
+
+    args = train.get_parser().parse_args(common + ["--steps", "3"])
+    _, fresh, _ = train.build_trainer(args, torch.device("cpu"))
+    ckpt_io.load_train_state(os.path.join(out, "checkpoint.npz"), fresh)
+    assert fresh.step == 3
+    for a, b in ((state.embedder, fresh.embedder), (state.extractor, fresh.extractor),
+                 (state.discriminator, fresh.discriminator)):
+        for (k, v), (_, w) in zip(a.state_dict().items(), b.state_dict().items()):
+            if not k.endswith("num_batches_tracked"):
+                torch.testing.assert_close(v, w, rtol=0, atol=0, msg=k)
+    sa, sb = state.opt_g.state_dict()["state"], fresh.opt_g.state_dict()["state"]
+    assert sa.keys() == sb.keys()
+    for i in sa:
+        for k in sa[i]:
+            torch.testing.assert_close(sa[i][k], sb[i][k], rtol=0, atol=0)
+
+    state2, _, _ = train.main(common + ["--steps", "2", "--resume",
+                                        os.path.join(out, "checkpoint.npz")])
+    assert state2.step == 5
+
+
+def test_datasets_match_jax(tmp_path):
+    """SyntheticImages bit for bit; ImageFolder over PNGs written here (its
+    path cache too); the loader's batches and shuffles; the transforms."""
+    import cv2
+    from videoseal_tpu.data import datasets as JD
+    from videoseal_tpu.data import loader as JL
+    from videoseal_tpu.data import transforms as JT
+    from videoseal_tpu_torch.data import datasets as PD
+    from videoseal_tpu_torch.data import loader as PL
+    from videoseal_tpu_torch.data import transforms as PT
+    js, ps = JD.SyntheticImages(10, 48, seed=3), PD.SyntheticImages(10, 48, seed=3)
+    for i in (0, 7):
+        for a, b in zip(js[i], ps[i]):
+            assert np.array_equal(a, b)
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        cv2.imwrite(str(tmp_path / f"im{i}.png"), rng.integers(0, 256, (40 + 8 * i, 56, 3),
+                                                               dtype=np.uint8))
+    jf, pf = JD.ImageFolder(str(tmp_path), 32), PD.ImageFolder(str(tmp_path), 32)
+    assert jf.samples == pf.samples and len(pf) == 5
+    assert PD.ImageFolder(str(tmp_path), 32).samples == pf.samples     # from the cache
+    for i in range(5):
+        for a, b in zip(jf[i], pf[i]):
+            assert np.array_equal(a, b)
+    for jl, pl in ((JL.DataLoader(jf, 2, seed=1), PL.DataLoader(pf, 2, seed=1)),):
+        for epoch in (0, 1):
+            jl.set_epoch(epoch)
+            pl.set_epoch(epoch)
+            jb, pb = list(jl), list(pl)
+            assert len(jb) == len(pb) == 2
+            for a, b in zip(jb, pb):
+                assert np.array_equal(a["imgs"], b["imgs"])
+    img = pf[2][0]
+    jt, _ = JT.get_transforms(24, seed=5)
+    pt, _ = PT.get_transforms(24, seed=5)
+    assert np.array_equal(jt(img), pt(img))
+
+
+def test_train_main_image_folder(tmp_path):
+    """Training on an image folder the test writes (the host loader path)."""
+    import cv2
+    from videoseal_tpu_torch import train
+    rng = np.random.default_rng(1)
+    data = tmp_path / "imgs"
+    data.mkdir()
+    for i in range(6):
+        cv2.imwrite(str(data / f"{i}.png"), rng.integers(0, 256, (80, 72, 3), dtype=np.uint8))
+    state, _, step_ms = train.main(["--device", "cpu", "--tiny", "1", "--image_dataset",
+                                    str(data), "--batch_size", "2", "--steps", "3",
+                                    "--img_size", "64", "--eval_freq", "0",
+                                    "--output_dir", str(tmp_path / "run")])
+    assert state.step == 3 and len(step_ms) == 3
+
+
+def test_train_main_refuses():
+    from videoseal_tpu_torch import train
+    if not torch.cuda.is_available():       # the card is the default device
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train.main(["--tiny", "1"])
+    base = ["--device", "cpu", "--tiny", "1"]
+    for extra in (["--distributed", "1"], ["--ckpt_format", "orbax"],
+                  ["--video_dataset", "clips/"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+            train.main(base + extra)
+    with pytest.raises(ValueError, match="JSON"):
+        train.main(base + ["--augmentation_config", "augs.yaml"])
+
+
+def test_jax_train_state_refused(tmp_path):
+    """A train state the JAX package wrote (optax trees by leaf index) is
+    refused with a pointer to ROADMAP 1.8."""
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.utils import checkpoint as ckpt_io
+    path = str(tmp_path / "jax_state.npz")
+    np.savez(path, **{"__treedef__embedder_params": np.zeros(3, np.uint8),
+                      "step": np.asarray(3)})
+    args = train.get_parser().parse_args(["--device", "cpu", "--tiny", "1"])
+    _, state, _ = train.build_trainer(args, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+        ckpt_io.load_train_state(path, state)

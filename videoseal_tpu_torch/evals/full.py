@@ -1,8 +1,9 @@
 """Full robustness and quality evaluation, counterpart of
 ``videoseal_tpu/evals/full.py``.
 
-Per sample: embed -> quality (PSNR, SSIM, MS-SSIM, L-inf; LPIPS NaN until
-``losses/lpips`` is ported) -> for every (attack, strength) of the grid:
+Per sample: embed -> quality (PSNR, SSIM, MS-SSIM, L-inf, and LPIPS with
+AlexNet, else VGG, where converted weights are on disk:
+``losses/lpips.build``; NaN otherwise) -> for every (attack, strength) of the grid:
 attack the watermarked frames, detect, and score bit accuracy, p-value,
 log10 p-value and capacity (plus the localization columns for a pixelwise
 extractor, VMAF and BD-rate for video where an ffmpeg with libvmaf exists)
@@ -74,6 +75,21 @@ def _vmaf_columns(imgs: np.ndarray, imgs_w: np.ndarray, si: int, bdrate: bool,
     return out
 
 
+def _lpips_fn():
+    """The eval-time LPIPS: AlexNet's (the reference's eval), else VGG's,
+    from ``$VIDEOSEAL_TPU_WEIGHTS``; (fn or None, the first missing file's
+    message)."""
+    from ..losses import lpips as L
+
+    missing = None
+    for name in ("lpips_alex", "lpips"):
+        try:
+            return L.build(name, None), None
+        except FileNotFoundError as e:
+            missing = missing or str(e)
+    return None, missing
+
+
 def evaluate(model, samples, is_video: bool = False, validation_augs=None,
              aggregation: str = "avg", out_csv: str | None = None,
              max_samples: int | None = None, verbose: bool = True,
@@ -88,9 +104,9 @@ def evaluate(model, samples, is_video: bool = False, validation_augs=None,
 
     if validation_augs is None:
         validation_augs = get_validation_augs(is_video)
-    if verbose:
-        print("eval: LPIPS column skipped (no converted weights on disk — losses/lpips "
-              "is not ported yet; column will be NaN)")
+    lpips, missing = _lpips_fn()
+    if lpips is None and verbose:
+        print(f"eval: LPIPS column NaN: {missing}")
     dev = model.device
     timer = "cuda_events" if dev.type == "cuda" else "host_clock"
 
@@ -101,6 +117,8 @@ def evaluate(model, samples, is_video: bool = False, validation_augs=None,
         imgs = torch.as_tensor(imgs, dtype=torch.float32, device=dev)
         outputs, embed_time = timed(lambda: model.embed(imgs, is_video=is_video), dev)
         imgs_w, msgs = outputs["imgs_w"], outputs["msgs"]
+        with torch.no_grad():
+            lp = float(lpips(2 * imgs_w - 1, 2 * imgs - 1)) if lpips is not None else math.nan
         base = {
             "sample": si,
             "embed_time": embed_time,
@@ -109,7 +127,7 @@ def evaluate(model, samples, is_video: bool = False, validation_augs=None,
             "msssim": float(M.ms_ssim(imgs_w, imgs).mean())
             if min(imgs.shape[-3:-1]) > 160 else float("nan"),
             "linf": float(M.linf(imgs_w, imgs)),
-            "lpips": float("nan"),
+            "lpips": lp,
         }
         if is_video:
             if not vmaf_available():

@@ -1,0 +1,82 @@
+"""In-training evaluation, counterpart of ``videoseal_tpu/evals/intrain.py``.
+
+Every ``eval_freq`` epochs the training loop embeds a held-out batch of
+images with the current state (the embedder in eval mode: BatchNorm's
+running statistics), logs PSNR and SSIM, then for every (attack, strength)
+row of a validation grid and every validation mask: masks the watermark in,
+attacks, resizes, detects and logs bit accuracy. Everything runs under
+``torch.no_grad``, so the extractor takes its kernel route (K2 on the
+card). The JAX package's video clips and its pixelwise columns (accuracy,
+mIoU) wait for the video datasets (ROADMAP.md 1.8) and the pixelwise
+decoder (1.9).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.metrics import bit_accuracy, psnr, ssim
+from ..ops.resize import resize_bilinear
+
+
+def make_intrain_eval(mods, eval_augs: str = "subset", validation_masks=None):
+    """eval_fn(state, imgs, generator, msgs=None) -> (scalars dict, imgs_w)
+    over TrainerModules `mods`: imgs a held-out (B, H, W, 3) float batch in
+    [0, 1] (numpy or tensor); the messages come from `generator`, or `msgs`
+    injects them.
+    validation_masks: a list of (H, W) or (H, W, 1) arrays in {0, 1};
+    default one all-ones mask."""
+    from ..augmentation.validation import (get_validation_augs,
+                                           get_validation_augs_geometric,
+                                           get_validation_augs_subset)
+    from ..parallel.trainer import embed_batch, watermark
+
+    s = mods.cfg.img_size
+    if eval_augs == "identity":
+        grid = get_validation_augs(only_identity=True)
+    elif eval_augs == "full":
+        grid = get_validation_augs()
+    elif eval_augs == "geometric":
+        grid = get_validation_augs_geometric()
+    else:
+        grid = get_validation_augs_subset()
+    rows = [(f"{aug.name}_{st}", aug, st) for aug, strengths in grid for st in strengths]
+    if validation_masks is None:
+        masks_list = [np.ones((1, 1, 1), np.float32)]     # broadcasts to any H, W
+    else:
+        masks_list = [np.asarray(m, np.float32) for m in validation_masks]
+        masks_list = [m[..., None] if m.ndim == 2 else m for m in masks_list]
+
+    def bit_acc(state, imgs, imgs_w, mask, msgs, aug, strength) -> float:
+        mask_b = mask.expand((imgs_w.shape[0],) + tuple(imgs_w.shape[1:3]) + (1,))
+        att, _ = aug.apply_strength(imgs_w * mask_b + imgs * (1.0 - mask_b), mask_b, strength)
+        preds = state.extractor(resize_bilinear(att, s, s))
+        return float(torch.mean(bit_accuracy(preds[..., 1:], msgs)))
+
+    def eval_fn(state, imgs, generator: torch.Generator, msgs: torch.Tensor | None = None):
+        dev = next(state.embedder.parameters()).device
+        imgs = torch.as_tensor(imgs, dtype=torch.float32, device=dev)
+        if msgs is None:
+            msgs = torch.randint(0, 2, (imgs.shape[0], mods.cfg.nbits), generator=generator,
+                                 device=generator.device)
+        msgs = msgs.to(dev)
+        was_training = state.embedder.training
+        state.embedder.eval()
+        try:
+            with torch.no_grad():
+                preds_w, _ = embed_batch(mods, state.embedder, imgs, msgs, False)
+                imgs_w = watermark(mods, imgs, preds_w, state.scaling_w)
+                scalars = {"psnr": float(torch.mean(psnr(imgs_w, imgs))),
+                           "ssim": float(torch.mean(ssim(imgs_w, imgs)))}
+                for mask_id, mask in enumerate(masks_list):
+                    mt = torch.as_tensor(mask, device=dev)
+                    sfx = "" if mask_id == 0 else f"_mask{mask_id}"
+                    for name, aug, st in rows:
+                        scalars[f"bit_acc_{name}{sfx}"] = bit_acc(state, imgs, imgs_w, mt,
+                                                                  msgs, aug, st)
+        finally:
+            state.embedder.train(was_training)
+        return scalars, imgs_w
+
+    return eval_fn

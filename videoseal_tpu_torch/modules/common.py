@@ -8,8 +8,10 @@ modules, so a reference state_dict loads directly:
   ``weight``/``bias`` of shape (C,);
 * ``GRN``: ``gamma``/``beta`` of shape (1, 1, 1, C), 1e-12 floor under the
   square root;
-* ``make_norm``: "batch" is ``nn.BatchNorm2d`` (eps 1e-5), used in eval
-  mode; "group" ``nn.GroupNorm`` (8 groups, eps 1e-5); "layer" a
+* ``make_norm``: "batch" is ``BatchNorm2d`` (eps 1e-5): in eval mode
+  ``nn.BatchNorm2d``'s, in train mode flax's (the batch's statistics, and
+  running statistics updated at momentum 0.9 with the biased variance);
+  "group" ``nn.GroupNorm`` (8 groups, eps 1e-5); "layer" a
   ``ChannelLayerNorm``; "rms" ``ChanRMSNorm``, ``gamma`` of shape (C, 1, 1);
 * GELU is the exact erf form (``nn.GELU()``); SiLU and LeakyReLU (slope 0.2)
   complete the activation registry.
@@ -18,6 +20,7 @@ modules, so a reference state_dict loads directly:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bilinear
@@ -94,10 +97,27 @@ class ChanRMSNorm(nn.Module):
         return x / torch.clamp(norm, min=1e-12) * self.scale * self.gamma
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates the running variance with
+    the batch's biased variance, as flax's ``nn.BatchNorm`` (momentum 0.9)
+    does; torch's own uses the unbiased one, n/(n-1) times larger. The
+    state dict is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xs = x.to(self.running_mean.dtype)
+            self.running_mean.lerp_(xs.mean(dim=(0, 2, 3)), self.momentum)
+            self.running_var.lerp_(xs.var(dim=(0, 2, 3), correction=0), self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 def make_norm(kind: str, dim: int) -> nn.Module:
     """The reference's norm registry, on NCHW input."""
     if kind.startswith("batch"):
-        return nn.BatchNorm2d(dim, eps=1e-5)
+        return BatchNorm2d(dim, eps=1e-5)
     if kind.startswith("group"):
         return nn.GroupNorm(8, dim, eps=1e-5)
     if kind.startswith("layer"):
@@ -135,8 +155,7 @@ class Upsample(nn.Module):
         super().__init__()
         if upscale_type != "bilinear":
             raise NotImplementedError(
-                f"upscale_type {upscale_type!r}: ported with the other cards "
-                "(ROADMAP.md 1.2)")
+                f"upscale_type {upscale_type!r}: ROADMAP.md 1.9")
         self.upsample_block = nn.Sequential(
             Interpolate(up_factor),
             nn.ReflectionPad2d(1),

@@ -1,16 +1,28 @@
 """ConvNeXtV2 extractor backbone, counterpart of ``videoseal_tpu/modules/convnext.py``.
 
-Runs NHWC, the layout of the LN and pointwise work. The forward is
-``kernels/convnext_fused.py::convnext_apply_fused``: every residual block
-goes through K2 (``kernels/convnext_block.py``); the stem (4x4, stride 4)
-and the 2x2 downsample convs are plain strided convolutions. Names follow the
-reference state_dict (``downsample_layers``, ``stages``).
+Runs NHWC, the layout of the LN and pointwise work. Names follow the
+reference state_dict (``downsample_layers``, ``stages``). Two routes, split by
+`differentiable`:
+
+* the kernel route (under ``torch.no_grad``, or when neither the input nor
+  any parameter requires grad; every serving and eval entry point):
+  ``kernels/convnext_fused.py::convnext_apply_fused``, every residual block
+  through K2 (``kernels/convnext_block.py``), which rounds to bf16 inside as
+  the TPU kernel does and builds no autograd graph;
+* the differentiable route (grad enabled and something requires it; the
+  training step): the linen module's own f32 math on the live parameters at
+  the block's true width, as the JAX train step differentiates the linen
+  extractor (``videoseal_tpu/parallel/trainer.py:159``), never a kernel.
+
+The stem (4x4, stride 4) and the 2x2 downsample convs are plain strided
+convolutions on both routes.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -19,10 +31,18 @@ from ..kernels.convnext_fused import convnext_apply_fused
 from .common import GRN, ChannelLayerNorm
 
 
+def differentiable(module: nn.Module, x: torch.Tensor) -> bool:
+    """The route rule: grad is enabled and the input or a parameter of
+    `module` requires it."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+
+
 class ConvNeXtBlock(nn.Module):
-    """dwconv7x7 -> LN -> pw(4x) -> GELU -> GRN -> pw -> residual, via K2
-    (at K2's padded width where dim is not a multiple of 16: x is padded
-    and the result sliced here; the extractor's route pads once a stage)."""
+    """dwconv7x7 -> LN -> pw(4x) -> GELU -> GRN -> pw -> residual. The
+    kernel route runs K2 (at K2's padded width where dim is not a multiple of
+    16: x is padded and the result sliced here; the extractor's route pads
+    once a stage)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -32,7 +52,16 @@ class ConvNeXtBlock(nn.Module):
         self.grn = GRN(4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
 
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The linen block's math on the live parameters (NHWC, x's dtype)."""
+        h = self.dwconv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        h = self.pwconv1(self.norm(h))
+        h = self.pwconv2(self.grn(F.gelu(h)))
+        return x + h
+
     def forward(self, x):
+        if differentiable(self, x):
+            return self.forward_plain(x)
         c = x.shape[-1]
         if padded_width(c) == c:
             return convnext_block_fused(x, kernel_params(self))
@@ -63,4 +92,14 @@ class ConvNeXtV2(nn.Module):
             for i in range(4))
 
     def forward(self, x):
-        return convnext_apply_fused(self, x)
+        if not differentiable(self, x):
+            return convnext_apply_fused(self, x)
+        conv, norm = self.downsample_layers[0]
+        x = norm(conv(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        for i, stage in enumerate(self.stages):
+            if i > 0:
+                norm, conv = self.downsample_layers[i]
+                x = conv(norm(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            for blk in stage:
+                x = blk.forward_plain(x)
+        return x

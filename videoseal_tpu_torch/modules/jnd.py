@@ -108,6 +108,11 @@ class JND:
         heat = torch.clamp(la + cm - clc * torch.minimum(la, cm), min=0.0)
         return (heat * (1.0 / 255.0)).reshape(tuple(shape[:-1])).to(imgs.dtype)
 
+    def __call__(self, imgs: torch.Tensor, imgs_w: torch.Tensor) -> torch.Tensor:
+        """imgs + heatmaps(imgs) * (imgs_w - imgs): the training path's
+        attenuation after the blend."""
+        return imgs + self.heatmaps(imgs) * (imgs_w - imgs)
+
 
 def build_attenuation(name: str | None) -> JND | None:
     """Resolve 'jnd_I_O' names."""

@@ -17,8 +17,7 @@ class MsgProcessor(nn.Module):
         super().__init__()
         if msg_processor_type != "binary+concat":
             raise NotImplementedError(
-                f"msg_processor_type {msg_processor_type!r}: ported with the "
-                "other cards (ROADMAP.md 1.2)")
+                f"msg_processor_type {msg_processor_type!r}: ROADMAP.md 1.9")
         self.nbits = nbits
         self.hidden_size = hidden_size
         self.msg_embeddings = nn.Embedding(2 * nbits, hidden_size)

@@ -87,7 +87,7 @@ class UNetMsg(nn.Module):
                 "bilinear", "bilinear", "conv2d"):
             raise NotImplementedError(
                 "only bilinear up/downsampling with conv2d layers is ported "
-                "(ROADMAP.md 1.2 and 1.9)")
+                "(ROADMAP.md 1.9)")
         zc = [z_channels * m for m in z_channels_mults]
         kw = dict(activation=activation, normalization=normalization)
         self.inc = ResnetBlock(in_channels, zc[0], **kw)

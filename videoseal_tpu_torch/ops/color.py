@@ -1,10 +1,23 @@
-"""Color-space conversion (NHWC), counterpart of ``videoseal_tpu/ops/color.py``."""
+"""Color-space conversion (NHWC), counterpart of ``videoseal_tpu/ops/color.py``:
+the reference's analog YUV, as explicit multiply-adds on (..., 3) tensors."""
 
 from __future__ import annotations
 
 import torch
 
 _R2Y = (0.299, 0.587, 0.114)
+_R2U = (-0.14713, -0.28886, 0.436)
+_R2V = (0.615, -0.51499, -0.10001)
+
+
+def _mix(x: torch.Tensor, rows) -> torch.Tensor:
+    c0, c1, c2 = x[..., 0], x[..., 1], x[..., 2]
+    return torch.stack([r[0] * c0 + r[1] * c1 + r[2] * c2 for r in rows], dim=-1)
+
+
+def rgb_to_yuv(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB -> YUV."""
+    return _mix(x, (_R2Y, _R2U, _R2V))
 
 
 def rgb_to_y(x: torch.Tensor) -> torch.Tensor:

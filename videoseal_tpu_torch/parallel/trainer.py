@@ -1,0 +1,200 @@
+"""The GAN training step, counterpart of ``videoseal_tpu/parallel/trainer.py``.
+
+One call does what the reference's loop does per iteration: embed (train
+mode: the BatchNorm statistics update) -> video-mode expand -> resize, blend,
+attenuate (JND after the blend), clamp -> mask composite and sampled attack
+-> resize -> detect -> generator losses (the adaptive balance takes each
+loss's gradient norm with respect to the embedder's output, one
+``torch.autograd.grad`` a loss, as the JAX step takes one ``jax.vjp`` a
+loss) -> one backward and the generator's optimizer step -> the
+discriminator's step on the real images and the detached watermarked ones.
+
+The step differentiates the modules, not the kernels: with grad enabled the
+extractor takes its differentiable route (``modules/convnext.py``), as the
+JAX step applies the linen modules. It runs in float32, without autocast.
+Video batches are (V, F, H, W, 3) with one message per clip. One process,
+one device: multi-GPU training is ROADMAP.md 1.8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from ..losses.videosealloss import VideoSealLoss
+from ..models.blender import blend
+from ..models.videoseal import PipelineConfig, _expand_video_mode
+from ..modules.jnd import JND
+from ..ops.color import rgb_to_y
+from ..ops.metrics import bit_accuracy, psnr
+from ..ops.resize import resize_bilinear
+from ..utils.optim import build_optimizer, lr_scheduler
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The modules (the embedder's BatchNorm statistics are its buffers),
+    their optimizers, the generator's lr schedule (or None), the step and
+    the schedulable blend strength."""
+    step: int
+    embedder: nn.Module
+    extractor: nn.Module
+    discriminator: nn.Module
+    opt_g: torch.optim.Optimizer
+    opt_d: torch.optim.Optimizer
+    sched_g: Any
+    scaling_w: float
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerModules:
+    """What the step closes over: the three modules, the train-path
+    augmenter, the attenuation, the pipeline settings and the losses."""
+    embedder: nn.Module
+    extractor: nn.Module
+    discriminator: nn.Module
+    augmenter: Any               # augmentation.Augmenter
+    attenuation: JND | None
+    cfg: PipelineConfig
+    loss: VideoSealLoss
+    scaling_i: float = 1.0
+    temperature: float = 1.0
+    balanced: bool = True
+
+
+def create_train_state(mods: TrainerModules, optimizer_g: str, optimizer_d: str,
+                       scaling_w: float = 0.2, schedule: Callable[[int], float] | None = None
+                       ) -> TrainState:
+    """Optimizers over mods' modules, as they stand (built, initialised and
+    on their device): the generator's over the embedder's and then the
+    extractor's parameters, the discriminator's over its own; `schedule`
+    (a per-step lr function) drives the generator's under a LambdaLR."""
+    gen_params = list(mods.embedder.parameters()) + list(mods.extractor.parameters())
+    opt_g = build_optimizer(optimizer_g, gen_params)
+    opt_d = build_optimizer(optimizer_d, mods.discriminator.parameters())
+    return TrainState(step=0, embedder=mods.embedder.train(), extractor=mods.extractor.train(),
+                      discriminator=mods.discriminator.train(), opt_g=opt_g, opt_d=opt_d,
+                      sched_g=lr_scheduler(opt_g, schedule) if schedule is not None else None,
+                      scaling_w=float(scaling_w))
+
+
+def embed_batch(mods: TrainerModules, embedder: nn.Module, imgs: torch.Tensor,
+                msgs: torch.Tensor, is_video: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(preds_w at the processing size for every frame (N, s, s, C), the
+    messages of every frame (N, nbits)): images embed each; clips embed
+    their key frames (every step_size-th) with the clip's message, and the
+    key predictions spread over the clip by video_mode."""
+    cfg = mods.cfg
+    s = cfg.img_size
+    if not is_video:
+        imgs_res = resize_bilinear(imgs, s, s)
+        return embedder(rgb_to_y(imgs_res) if cfg.yuv else imgs_res, msgs), msgs
+    v, f = imgs.shape[0], imgs.shape[1]
+    res = resize_bilinear(imgs.reshape((v * f,) + tuple(imgs.shape[2:])), s, s)
+    keys_in = res.reshape(v, f, s, s, 3)[:, ::cfg.step_size]
+    k = keys_in.shape[1]
+    keys_flat = keys_in.reshape(v * k, s, s, 3)
+    preds_k = embedder(rgb_to_y(keys_flat) if cfg.yuv else keys_flat,
+                       msgs.repeat_interleave(k, dim=0))
+    preds_k = preds_k.reshape((v, k) + tuple(preds_k.shape[1:]))
+    preds_w = torch.stack([_expand_video_mode(p, f, cfg.step_size, cfg.video_mode)
+                           for p in preds_k])
+    return preds_w.reshape((v * f,) + tuple(preds_w.shape[2:])), msgs.repeat_interleave(f, dim=0)
+
+
+def watermark(mods: TrainerModules, imgs_flat: torch.Tensor, preds_w: torch.Tensor,
+              scaling_w: float) -> torch.Tensor:
+    """The full-resolution watermarked frames: resize, blend, JND after the
+    blend, clamp."""
+    h, w = imgs_flat.shape[-3], imgs_flat.shape[-2]
+    imgs_w = blend(mods.cfg.blending_method, imgs_flat, resize_bilinear(preds_w, h, w),
+                   mods.scaling_i, scaling_w)
+    if mods.attenuation is not None:
+        imgs_w = mods.attenuation(imgs_flat, imgs_w)
+    return torch.clamp(imgs_w, 0.0, 1.0) if mods.cfg.clamp else imgs_w
+
+
+def _frozen(module: nn.Module) -> Callable:
+    """module's forward on detached parameters: a loss through it reaches
+    its input, never its parameters."""
+    params = {n: p.detach() for n, p in module.named_parameters()}
+    return lambda x: torch.func.functional_call(module, params, (x,))
+
+
+def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "both") -> Callable:
+    """The step: train_step(state, batch, generator, msgs=None) -> (state,
+    logs), updating state in place. batch: {"imgs": (B, H, W, 3) or (V, F,
+    H, W, 3) float in [0, 1], "masks": the imgs' [..., :1] shape or absent}
+    on the modules' device. The messages (one per image or clip) and the
+    augmenter's draws come from `generator`, on that device; `msgs` injects
+    the messages instead. mode: "both" (the reference's default), "gen" or
+    "disc" (the sleepwake alternation). After the step each parameter's
+    .grad holds the gradient its optimizer took (None where none did)."""
+    if mode not in ("both", "gen", "disc"):
+        raise ValueError(f"mode must be both, gen or disc, got {mode!r}")
+    cfg, loss_cfg = mods.cfg, mods.loss
+    s = cfg.img_size
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator,
+                   msgs: torch.Tensor | None = None):
+        imgs = batch["imgs"]
+        masks = batch.get("masks")
+        if msgs is None:
+            msgs = torch.randint(0, 2, (imgs.shape[0], cfg.nbits), generator=generator,
+                                 device=generator.device)
+        msgs = msgs.to(imgs.device)
+        imgs_flat = imgs.reshape((-1,) + tuple(imgs.shape[-3:]))
+        masks_flat = (masks.reshape((-1,) + tuple(masks.shape[-3:]))
+                      if masks is not None else None)
+        state.embedder.train()
+        state.extractor.train()
+        state.opt_g.zero_grad(set_to_none=True)
+        state.opt_d.zero_grad(set_to_none=True)
+
+        # the forward runs with grad in every mode, so that the extractor
+        # takes the modules' route (no kernel), as the JAX step's does
+        preds_w, msgs_frames = embed_batch(mods, state.embedder, imgs, msgs, is_video)
+        imgs_w = watermark(mods, imgs_flat, preds_w, state.scaling_w)
+        imgs_aug, mask_t, _ = mods.augmenter(generator, imgs_w, imgs_flat, masks_flat,
+                                             is_video=is_video, train=True)
+        preds = state.extractor(resize_bilinear(imgs_aug, s, s)) / mods.temperature
+        losses, weights = loss_cfg.generator_losses(
+            imgs_flat, imgs_w, mask_t, msgs_frames, preds, _frozen(state.discriminator),
+            state.step)
+
+        if mode in ("both", "gen"):
+            grad_norms = None
+            if mods.balanced and len(losses) > 1:
+                grad_norms = {}
+                for k, v in losses.items():
+                    (g,) = torch.autograd.grad(v, preds_w, retain_graph=True, allow_unused=True)
+                    grad_norms[k] = (torch.sqrt(torch.sum(g.float() ** 2)).detach()
+                                     if g is not None else torch.zeros((), device=v.device))
+            total, logs = loss_cfg.combine(losses, weights, grad_norms)
+            total.backward()
+            state.opt_g.step()
+            if state.sched_g is not None:
+                state.sched_g.step()
+        else:
+            logs = {f"loss_{k}": v for k, v in losses.items()}
+
+        if loss_cfg.disc_weight > 0 and mode in ("both", "disc"):
+            d_loss, d_logs = loss_cfg.discriminator_loss(state.discriminator, imgs_flat, imgs_w,
+                                                         state.step)
+            d_loss.backward()
+            state.opt_d.step()
+            logs.update(d_logs)
+
+        with torch.no_grad():
+            logs["psnr"] = torch.mean(psnr(imgs_w, imgs_flat))
+            bits = preds[..., 1:]
+            logs["bit_acc"] = torch.nanmean(bit_accuracy(
+                bits, msgs_frames, mask_t if bits.ndim == 4 else None))
+        state.step += 1
+        return state, {k: v.detach() if isinstance(v, torch.Tensor) else v
+                       for k, v in logs.items()}
+
+    return train_step

@@ -9,6 +9,8 @@ args as a JSON blob under ``__args__``. The trees go through
 and out of the port's state dicts, so either package reads what the other
 writes. A reference-named ``torch.save`` file (``.pth``/``.pt``) loads
 straight into the port's modules, which keep the reference's names.
+`save_train_state` / `load_train_state` write and read the port's training
+state: the modules in the same layout, the optimizers' states beside them.
 """
 
 from __future__ import annotations
@@ -104,3 +106,94 @@ def load_into(path: str, embedder: torch.nn.Module, extractor: torch.nn.Module) 
         emb, ext = from_jax_variables(*load_npz(path))
     embedder.load_state_dict(_check_and_cast(emb, embedder, "embedder"))
     extractor.load_state_dict(_check_and_cast(ext, extractor, "extractor"))
+
+
+def _unet_norm(embedder: torch.nn.Module) -> str:
+    """The UNet's `normalization`, from its first norm module's type."""
+    from ..modules.common import ChannelLayerNorm, ChanRMSNorm
+
+    for m in embedder.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            return "batch"
+        if isinstance(m, torch.nn.GroupNorm):
+            return "group"
+        if isinstance(m, ChanRMSNorm):
+            return "rms"
+        if isinstance(m, ChannelLayerNorm):
+            return "layer"
+    return "batch"
+
+
+def _flat_optimizer(prefix: str, opt: torch.optim.Optimizer) -> dict:
+    sd = opt.state_dict()
+    flat = {f"{prefix}{SEP}param_groups": np.frombuffer(
+        json.dumps(sd["param_groups"]).encode(), dtype=np.uint8)}
+    for idx, st in sd["state"].items():
+        for name, v in st.items():
+            flat[f"{prefix}{SEP}state{SEP}{idx}{SEP}{name}"] = v.detach().cpu().numpy()
+    return flat
+
+
+def _load_optimizer(prefix: str, data, opt: torch.optim.Optimizer) -> None:
+    groups = json.loads(bytes(data[f"{prefix}{SEP}param_groups"]).decode())
+    state: dict = {}
+    head = f"{prefix}{SEP}state{SEP}"
+    for key in data.files:
+        if key.startswith(head):
+            idx, name = key[len(head):].split(SEP)
+            state.setdefault(int(idx), {})[name] = torch.from_numpy(np.array(data[key]))
+    opt.load_state_dict({"state": state, "param_groups": groups})
+
+
+def save_train_state(path: str, state) -> None:
+    """A ``parallel.trainer.TrainState`` to ``.npz``: the embedder's and
+    extractor's variables in the JAX layout that `save_npz` writes
+    (``embedder//params//...``, ``embedder//batch_stats//...``,
+    ``extractor//params//...``), the discriminator's as
+    ``discriminator//params//...``, both optimizers' states (tensors by
+    parameter index, the param groups as JSON), the lr schedule's state,
+    the step and scaling_w."""
+    from .convert import disc_to_jax, to_jax_variables
+
+    emb_vars, ext_vars = to_jax_variables(state.embedder.state_dict(),
+                                          state.extractor.state_dict(),
+                                          _unet_norm(state.embedder))
+    flat = {f"embedder{SEP}{k}": v for k, v in flatten_tree(emb_vars).items()}
+    flat.update({f"extractor{SEP}{k}": v for k, v in flatten_tree(ext_vars).items()})
+    flat.update({f"discriminator{SEP}{k}": v for k, v in
+                 flatten_tree(disc_to_jax(state.discriminator.state_dict())).items()})
+    flat.update(_flat_optimizer("opt_g", state.opt_g))
+    flat.update(_flat_optimizer("opt_d", state.opt_d))
+    if state.sched_g is not None:
+        flat["sched_g"] = np.frombuffer(json.dumps(state.sched_g.state_dict()).encode(),
+                                        dtype=np.uint8)
+    flat["step"] = np.asarray(state.step, np.int64)
+    flat["scaling_w"] = np.asarray(state.scaling_w, np.float32)
+    np.savez(path, **flat)
+
+
+def load_train_state(path: str, state) -> None:
+    """Restore a `save_train_state` file into `state` (a freshly created
+    TrainState of the same configuration) in place. A train state written
+    by the JAX package (its optax trees stored by leaf index) raises
+    NotImplementedError: ROADMAP.md 1.8."""
+    from .convert import disc_from_jax, from_jax_variables
+
+    with np.load(path) as data:
+        if any(k.startswith("__treedef__") for k in data.files):
+            raise NotImplementedError(
+                f"{path} is a JAX-written train state (optax trees by leaf index); "
+                "resuming from it is ROADMAP.md 1.8")
+        tree = unflatten_tree({k: data[k] for k in data.files
+                               if k.startswith(("embedder", "extractor", "discriminator"))})
+        emb, ext = from_jax_variables(tree["embedder"], tree["extractor"])
+        state.embedder.load_state_dict(_check_and_cast(emb, state.embedder, "embedder"))
+        state.extractor.load_state_dict(_check_and_cast(ext, state.extractor, "extractor"))
+        state.discriminator.load_state_dict(_check_and_cast(
+            disc_from_jax(tree["discriminator"]), state.discriminator, "discriminator"))
+        _load_optimizer("opt_g", data, state.opt_g)
+        _load_optimizer("opt_d", data, state.opt_d)
+        if state.sched_g is not None:
+            state.sched_g.load_state_dict(json.loads(bytes(data["sched_g"]).decode()))
+        state.step = int(data["step"])
+        state.scaling_w = float(data["scaling_w"])

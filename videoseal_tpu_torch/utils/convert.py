@@ -198,3 +198,43 @@ def to_jax_variables(embedder_sd: dict, extractor_sd: dict,
     vit = any(k.startswith("image_encoder.") for k in extractor_sd)
     ext, _ = _invert(extractor_sd, (_VIT_INV if vit else _CONVNEXT_INV) + _PIXEL_DECODER_INV)
     return emb_vars, {"params": _nest(ext)}
+
+
+def disc_from_jax(disc_vars: dict) -> dict:
+    """A discriminator's JAX variables (``params``, and for the SN U-Net
+    ``batch_stats``: each ``SpectralNorm_i`` holding ``conv<n>/kernel/u`` and
+    ``.../sigma``) -> the state dict of ``modules/discriminator.py``'s
+    module, whose names are the JAX tree's."""
+    sd = {}
+    for path, a in _flatten(disc_vars["params"]).items():
+        head, _, leaf = path.rpartition(".")
+        if leaf == "kernel":
+            a, leaf = np.transpose(a, (3, 2, 0, 1)), "weight"
+        elif leaf == "scale":                       # GroupNorm
+            leaf = "weight"
+        sd[f"{head}.{leaf}"] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    for stats in disc_vars.get("batch_stats", {}).values():
+        for name, a in stats.items():
+            conv, _, leaf = name.split("/")
+            sd[f"{conv}.{leaf}"] = torch.from_numpy(np.array(a, np.float32))
+    return sd
+
+
+def disc_to_jax(sd: dict) -> dict:
+    """The inverse of `disc_from_jax`: a discriminator's state dict -> its
+    JAX variables (``batch_stats`` only where it has SN convs)."""
+    params, stats = {}, {}
+    sn = sorted({k.rpartition(".")[0] for k in sd if k.endswith(".u")},
+                key=lambda c: int(c[len("conv"):]))
+    for name, t in sd.items():
+        head, _, leaf = name.rpartition(".")
+        a = t.detach().float().cpu().numpy()
+        if leaf in ("u", "sigma"):
+            stats.setdefault(f"SpectralNorm_{sn.index(head)}", {})[f"{head}/kernel/{leaf}"] = a
+            continue
+        if leaf == "weight" and a.ndim == 4:
+            a, leaf = np.transpose(a, (2, 3, 1, 0)), "kernel"
+        elif leaf == "weight":
+            leaf = "scale"
+        params.setdefault(head, {})[leaf] = np.array(a, np.float32, order="C")
+    return {"params": params, **({"batch_stats": stats} if stats else {})}

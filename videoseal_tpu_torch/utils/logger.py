@@ -1,0 +1,52 @@
+"""Metric logging, counterpart of ``videoseal_tpu/utils/logger.py``
+(the reference's MetricLogger and SmoothedValue): windowed medians and
+global averages per metric. One process: no cross-host sync (multi-GPU
+training is ROADMAP.md 1.8)."""
+
+from __future__ import annotations
+
+import collections
+import statistics
+
+
+class SmoothedValue:
+    def __init__(self, window: int = 20):
+        self.window = collections.deque(maxlen=window)
+        self.total = 0.0
+        self.count = 0
+
+    def update(self, v: float, n: int = 1):
+        self.window.append(v)
+        self.total += v * n
+        self.count += n
+
+    @property
+    def median(self):
+        return statistics.median(self.window) if self.window else 0.0
+
+    @property
+    def global_avg(self):
+        return self.total / max(self.count, 1)
+
+
+class MetricLogger:
+    def __init__(self, delimiter: str = "  "):
+        self.meters: dict[str, SmoothedValue] = collections.defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def recent(self) -> dict:
+        """Windowed medians: the trajectory (global_avg flattens a trend
+        into the lifetime mean)."""
+        return {k: m.median for k, m in self.meters.items()}
+
+    def line(self, prefix: str = "", keys=None) -> str:
+        keys = keys or list(self.meters)
+        parts = [prefix] if prefix else []
+        for k in keys:
+            m = self.meters[k]
+            parts.append(f"{k}: {m.median:.4f} ({m.global_avg:.4f})")
+        return self.delimiter.join(parts)
