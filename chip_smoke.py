@@ -113,7 +113,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      (batch 2) and one video step (a 16-frame clip) of make_train_step on the
      card against the CPU, balanced 0 and 1, TF32 off: losses, scales,
      gradients, updated tensors and BatchNorm statistics. The run's log and
-     eval rows in chiprun_out/train/.
+     eval rows in chiprun_out/train/;
+ 18. data-parallel training and the rest of training, videoseal_1.0 at
+     full width (float32, PyTorch's TF32 defaults): two ranks sharing the
+     card over gloo (torch.multiprocessing), each on half of a batch of 16
+     (or of 2 clips of 16 frames), one SGD step from the same state and
+     DEFAULT_AUGS' draws, image and video, balanced 0 and 1, TF32 off (as
+     phase 17's card-vs-CPU), against one process on the whole batch
+     (losses and scales within 1e-5 relative, BatchNorm statistics within
+     1e-5 of each tensor's largest, the parameters as phase 17 holds them,
+     the ranks equal, the gradients' gap printed), and the image cases at
+     the TF32 defaults (printed, the parameters held); train.main
+     --distributed 1 in a subprocess with torchrun's environment (NCCL at
+     world size 1; world size 2 where a second card exists): 8 steps at
+     batch 16 on 64 PNGs written at start-up, one eval with image and video
+     rows (K2 144), a sharded checkpoint (--ckpt_format orbax) and a resume
+     from it for 2 steps, its restored state bit for bit the saved one (sha256),
+     ms a step with its spread beside phase 17's, peak memory;
+     --video_dataset over 2 mp4v clips that cv2 writes at start-up (4 steps
+     of 16-frame clips, the video eval: K2 72) and K2 at the video rows'
+     shapes against its plain version; lamb and adafactor on the card
+     against the CPU (losses and gradients as phase 17; each optimizer
+     alone on the CPU's gradients); evals.full --dataset over 4 PNGs (K4 1,
+     K2 18 a row) and tools.eval_checkpoint on the video run's checkpoint
+     (one image: K4 1, K2 18 a row).
+     Logs and eval rows in chiprun_out/dist/.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -226,6 +250,21 @@ ATTACK_HW = (720, 1280)   # the card-vs-CPU frames and the video grid's
 # ~1e2), the BatchNorm statistics to TRAIN_BN_ATOL
 TRAIN_STEPS, F_TRAIN_CLIP = 8, 16
 TRAIN_LOG_RTOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_ATOL, TRAIN_BN_ATOL = 1e-4, 3e-2, 1e-6, 1e-3
+# phase 18, two ranks sharing the card against one process on the whole
+# batch, TF32 off (as phase 17 holds the card against the CPU): the same
+# float32 arithmetic with the cross-rank sums in another order and cuDNN's
+# algorithms picked for batch 8 rather than 16; the losses and scales
+# agree to 1.8e-6 relative, the BatchNorm statistics to 4.6e-6 of each
+# tensor's largest (9.1e-6 absolute, the running variances reach ~7),
+# measured. The updated parameters are held as phase 17 holds the card
+# against itself, in every case. With TF32 (PyTorch's default for cuDNN)
+# each algorithm rounds differently: the balance's scales moved by 4.2e-5
+# and a gradient before a norm by 3.8e-2 of its module's largest
+# (measured), so those cases are printed, their parameters held
+DIST_LOG_RTOL, DIST_BN_RTOL = 1e-5, 1e-5
+# lamb and adafactor on the card from the CPU's gradients: per-tensor norms
+# and roots in another order, ~1e-7 of parameters ~1 (measured 2.4e-7)
+OPT_ALONE_ATOL = 1e-6
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -266,7 +305,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
@@ -2069,6 +2109,472 @@ def phase_train(dev, smi: str) -> dict:
             "card_vs_cpu": vs_cpu, "evals": evals[0], "log": logged}
 
 
+# -- phase 18: data-parallel training and the rest of ROADMAP 1.8 -----------------------
+
+# (modality, balanced, TF32 in cuDNN): with TF32 off, as phase 17 holds the
+# card against the CPU; then the image cases at PyTorch's TF32 defaults
+DIST_CASES = [("image", 0, False), ("image", 1, False), ("video", 0, False),
+              ("video", 1, False), ("image", 0, True), ("image", 1, True)]
+
+
+def _module_errors(got: dict, want: dict) -> dict:
+    """Two steps' records compared as phase 17 compares the card with the
+    CPU: logs relative, BatchNorm statistics absolute (and of each tensor's
+    largest), gradients of their module's largest, updated parameters absolute; with
+    the scale of the largest gradient."""
+    scale = {m: max(float(g.abs().max()) for k, g in want["grads"].items() if k.startswith(m))
+             for m in ("0.", "1.", "2.")}
+    gerr = {k: float((got["grads"][k].float() - g.float()).abs().max()) / scale[k[:2]]
+            for k, g in want["grads"].items()}
+    return {"logs": max(abs(got["logs"][k] - v) / max(abs(v), 1e-6)
+                        for k, v in want["logs"].items()),
+            "grads": max(gerr.values()), "grads_at": max(gerr, key=gerr.get),
+            "params": max(float((got["params"][k] - p).abs().max())
+                          for k, p in want["params"].items()),
+            "bn": max(float((got["bn"][k] - b).abs().max()) for k, b in want["bn"].items()),
+            "bn_rel": max(float((got["bn"][k] - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                          for k, b in want["bn"].items()),
+            "scale": max(scale.values())}
+
+
+def _step_record(state, logs) -> dict:
+    mods = (state.embedder, state.extractor, state.discriminator)
+    named = [(f"{i}.{n}", p) for i, m in enumerate(mods) for n, p in m.named_parameters()]
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "grads": {k: p.grad.detach().clone() for k, p in named if p.grad is not None},
+            "params": {k: p.detach().clone() for k, p in named},
+            "bn": {n: b.detach().clone() for n, b in state.embedder.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))}}
+
+
+def rank_dist_step(rank: int, dev_name: str, card_args: list, size: int) -> list:
+    """On each of two ranks (a gloo group, both ranks on one device): for
+    each DIST_CASES case, one SGD step at lr 1 on the rank's half of a
+    global batch (16 images, or 2 clips of 16 frames) with DEFAULT_AUGS'
+    draws from one generator seed. Rank 0 then runs one process's step on
+    the whole batch from the same state and draws and returns the errors;
+    rank 1 returns how far its parameters are from rank 0's."""
+    import torch.distributed as dist
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh()
+    out = []
+    for kind, balanced, tf32 in DIST_CASES:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32, False
+        video = kind == "video"
+        shape = (2, F_TRAIN_CLIP, size, size, 3) if video else (16, size, size, 3)
+        imgs = torch.as_tensor(np.random.default_rng(31).uniform(0, 1, shape)
+                               .astype(np.float32))
+        args = train.get_parser().parse_args(card_args + [
+            "--balanced", str(balanced), "--optimizer", "SGD,lr=1.0",
+            "--optimizer_d", "SGD,lr=1.0"])
+        rec = {}
+        for where, m in (("ranks", mesh), ("one", None)):
+            if where == "one" and rank != 0:
+                break
+            mods, state, _ = train.build_trainer(args, dev, m)
+            step = make_train_step(mods, is_video=video)
+            x = shard_batch(m, imgs) if m is not None else imgs
+            t0 = time.perf_counter()
+            _, logs = step(state, {"imgs": x.to(dev)}, torch.Generator().manual_seed(7))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec[where] = _step_record(state, logs)
+            rec[where + "_s"] = time.perf_counter() - t0
+            if where == "ranks":
+                flat = torch.cat([p.reshape(-1) for p in rec["ranks"]["params"].values()])
+                ref = flat.clone()
+                dist.broadcast(ref, 0, group=mesh.group)
+                rec["rank_gap"] = float((flat - ref).abs().max())
+            del mods, state
+        if rank == 0:
+            out.append({"case": f"{kind}, balanced {balanced}, TF32 {'on' if tf32 else 'off'}",
+                        "rank_gap": rec["rank_gap"],
+                        "ranks_s": rec["ranks_s"], "one_s": rec["one_s"],
+                        **_module_errors(rec["ranks"], rec["one"])})
+        else:
+            out.append({"rank_gap": rec["rank_gap"]})
+        del rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def state_digest(state) -> str:
+    """sha256 over a TrainState: every module tensor, both optimizers'
+    states and param groups, the step and scaling_w."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in ("embedder", "extractor", "discriminator"):
+        for k, v in sorted(getattr(state, name).state_dict().items()):
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    for name in ("opt_g", "opt_d"):
+        sd = getattr(state, name).state_dict()
+        h.update(json.dumps(sd["param_groups"], sort_keys=True).encode())
+        for i in sorted(sd["state"]):
+            for k, v in sorted(sd["state"][i].items()):
+                h.update(f"{i}.{k}".encode())
+                h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    h.update(f"{state.step} {state.scaling_w!r}".encode())
+    return h.hexdigest()
+
+
+def train_child(argv: list, out_json: str, resume_dir: str | None = None) -> None:
+    """A rank of `train.main(argv)` (run as a subprocess with the torchrun
+    environment): its step times, peak memory, the kernels it launched and
+    the digest of its final state to `out_json`. With resume_dir, first the
+    digest of a fresh state restored from that sharded checkpoint."""
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.utils import checkpoint as ckpt_io
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    args = train.get_parser().parse_args(argv)
+    dev = torch.device("cpu" if args.device == "cpu" else
+                       f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+    res = {}
+    if resume_dir:
+        _, fresh, _ = train.build_trainer(args, dev)
+        res["loaded_step"] = ckpt_io.load_train_state_sharded(resume_dir, fresh)
+        res["loaded_digest"] = state_digest(fresh)
+        del fresh
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _, step_ms = train.main(argv)
+    res.update(wall_s=time.perf_counter() - t0, step=state.step, step_ms=step_ms,
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if dev.type == "cuda" else float("nan")),
+               launches=read_counts(), digest=state_digest(state))
+    with open(out_json, "w") as f:
+        json.dump(res, f)
+
+
+def _run_ranks(world: int, argv: list, out_dir: str, tag: str,
+               resume_dir: str | None = None, timeout: float = 600) -> list:
+    """`train_child` on `world` subprocesses with torchrun's environment
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL, one card
+    a rank. Returns each rank's record; a failed rank fails the run."""
+    from videoseal_tpu_torch.parallel.launch import free_port
+    port = free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        out_json = os.path.join(out_dir, f"{tag}_rank{r}.json")
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+                f"cs.train_child({argv!r}, {out_json!r}, {resume_dir!r})")
+        log_f = open(os.path.join(out_dir, f"{tag}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                       stdout=log_f, stderr=subprocess.STDOUT), log_f, out_json))
+    recs = []
+    try:
+        for p, log_f, out_json in procs:
+            rc = p.wait(timeout=timeout)
+            log_f.close()
+            if rc != 0:
+                with open(log_f.name) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"{tag}: rank exited with {rc}:\n{tail}")
+            with open(out_json) as f:
+                recs.append(json.load(f))
+    finally:
+        for p, log_f, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+    return recs
+
+
+def _write_pngs(d: str, n: int, size: int, seed: int) -> str:
+    import cv2
+
+    from videoseal_tpu_torch.data.datasets import SyntheticImages
+    os.makedirs(d, exist_ok=True)
+    ds = SyntheticImages(n, img_size=size, seed=seed)
+    for i in range(n):
+        cv2.imwrite(os.path.join(d, f"{i:03d}.png"),
+                    np.clip(ds[i][0] * 255.0 + 0.5, 0, 255).astype(np.uint8)[..., ::-1])
+    return d
+
+
+def _write_clips(d: str, n: int, frames: int, size: int, seed: int) -> str:
+    """n mp4v clips of `frames` frames: a synthetic image drifting sideways."""
+    import cv2
+
+    from videoseal_tpu_torch.data.datasets import SyntheticImages
+    os.makedirs(d, exist_ok=True)
+    ds = SyntheticImages(n, img_size=size, seed=seed)
+    for i in range(n):
+        path = os.path.join(d, f"clip{i}.mp4")
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (size, size))
+        if not vw.isOpened():
+            raise AssertionError(f"cv2 cannot write mp4v to {path}")
+        base = np.clip(ds[i][0] * 255.0 + 0.5, 0, 255).astype(np.uint8)[..., ::-1]
+        for t in range(frames):
+            vw.write(np.ascontiguousarray(np.roll(base, 3 * t, axis=1)))
+        vw.release()
+    return d
+
+
+def _opt_card_vs_cpu(dev) -> dict:
+    """lamb and adafactor with phase 17's card-against-CPU case: one image
+    step (batch 2, balanced 0, the dummy augmenter, injected messages, TF32
+    off) at full width on the card and on the CPU from the same weights;
+    the losses and the gradients held as phase 17 holds them. The update
+    is each optimizer's function of those gradients, so it is held apart:
+    the optimizer on the card, given the CPU's gradients and starting
+    parameters, against the CPU's update; the whole step's update gap is
+    printed (it carries the gradients' gap through lamb's and adafactor's
+    per-element scaling)."""
+    import dataclasses
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
+    from videoseal_tpu_torch.parallel.trainer import create_train_state, make_train_step
+    from videoseal_tpu_torch.utils.optim import build_optimizer
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = False, False
+    rng = np.random.default_rng(23)
+    imgs = rng.uniform(0, 1, (2, 256, 256, 3)).astype(np.float32)
+    msgs = torch.as_tensor(rng.integers(0, 2, (2, 256)))
+    out = {}
+    for spec in ("lamb,lr=1e-3", "adafactor,lr=1e-3"):
+        args = train.get_parser().parse_args([])
+        res = []
+        for where in (dev, torch.device("cpu")):
+            mods, _, _ = train.build_trainer(args, where)
+            mods = dataclasses.replace(mods, augmenter=get_dummy_augmenter())
+            state = create_train_state(mods, spec, spec)
+            named = [(f"{i}.{n}", p) for i, m in enumerate(
+                (state.embedder, state.extractor, state.discriminator))
+                for n, p in m.named_parameters()]
+            before = {k: p.detach().cpu().clone() for k, p in named}
+            _, logs = make_train_step(mods)(state, {"imgs": torch.as_tensor(imgs, device=where)},
+                                            torch.Generator().manual_seed(0), msgs=msgs)
+            res.append({"logs": {k: float(v) for k, v in logs.items()}, "before": before,
+                        "grads": {k: p.grad.detach().cpu() for k, p in named},
+                        "after": {k: p.detach().cpu() for k, p in named}})
+            del mods, state
+        card, cpu = res
+        log_err = max(abs(card["logs"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["logs"].items())
+        scale = {m: max(float(g.abs().max()) for k, g in cpu["grads"].items() if k.startswith(m))
+                 for m in ("0.", "1.", "2.")}
+        grad_err = max(float((card["grads"][k] - g).abs().max()) / scale[k[:2]]
+                       for k, g in cpu["grads"].items())
+        step_gap = max(float(((card["after"][k] - card["before"][k])
+                              - (a - cpu["before"][k])).abs().max())
+                       / max(float((a - cpu["before"][k]).abs().max()), 1e-30)
+                       for k, a in cpu["after"].items())
+        # the optimizer alone on the card: the CPU's gradients and start
+        params = [torch.nn.Parameter(cpu["before"][k].to(dev)) for k in cpu["after"]]
+        opt = build_optimizer(spec, params)
+        for p, k in zip(params, cpu["after"]):
+            p.grad = cpu["grads"][k].to(dev)
+        opt.step()
+        alone = max(float((p.detach().cpu() - cpu["after"][k]).abs().max())
+                    for p, k in zip(params, cpu["after"]))
+        out[spec] = {"logs": log_err, "grads": grad_err, "opt_alone_abs": alone,
+                     "step_update_gap": step_gap}
+        log(f"[dist] {spec.split(',')[0]}, card vs CPU: losses rel {log_err:.2e}, grads (of the "
+            f"module's largest) {grad_err:.2e}; the optimizer alone on the CPU's gradients: "
+            f"params abs {alone:.2e}; the whole step's update, card against CPU, at most "
+            f"{step_gap:.2e} of a tensor's largest update")
+        if log_err > TRAIN_LOG_RTOL or grad_err > TRAIN_GRAD_RTOL or alone > OPT_ALONE_ATOL:
+            raise AssertionError(f"{spec}, card against CPU: {out[spec]}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_dist(dev, smi: str, phase17: dict) -> dict:
+    """Data-parallel training and the rest of ROADMAP 1.8 at videoseal_1.0's
+    full width: two gloo ranks on the card against one process;
+    train.main --distributed 1 over NCCL (world size 1, and 2 where a
+    second card exists) with image and video eval rows, a sharded
+    checkpoint and its exact resume; --video_dataset; lamb and adafactor
+    against the CPU; evals.full --dataset and tools.eval_checkpoint."""
+    import shutil
+    import tempfile
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.evals import full
+    from videoseal_tpu_torch.kernels import convnext_block as cb
+    from videoseal_tpu_torch.parallel.launch import run_local
+    from videoseal_tpu_torch.tools import eval_checkpoint
+    launches = {k: 0 for k in kernel_wrappers()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # two ranks sharing the card over gloo, against one process on all 16
+    t0 = time.perf_counter()
+    recs = run_local(rank_dist_step, 2, "cuda:0", ["--card", "videoseal_1.0"], 256,
+                     backend="gloo", timeout=900)
+    pair_s = time.perf_counter() - t0
+    worst = {"logs": 0.0, "grads": 0.0, "params": 0.0, "bn": 0.0, "bn_rel": 0.0,
+             "rank_gap": 0.0}      # over the TF32-off cases
+    for r0, r1 in zip(*recs):
+        gap = max(r0["rank_gap"], r1["rank_gap"])
+        log(f"[dist] two gloo ranks on one card vs one process, {r0['case']}: losses/scales "
+            f"rel {r0['logs']:.2e}, BN stats abs {r0['bn']:.2e} (of each tensor's largest "
+            f"{r0['bn_rel']:.2e}), grads (of the module's "
+            f"largest) {r0['grads']:.2e} at {r0['grads_at']}, updated params abs "
+            f"{r0['params']:.2e} (largest gradient {r0['scale']:.3g}), rank 1 from rank 0 "
+            f"{gap:.2e}; step {r0['ranks_s'] * 1e3:.0f} ms on the ranks, "
+            f"{r0['one_s'] * 1e3:.0f} ms one process (first calls)")
+        strict = r0["case"].endswith("TF32 off")
+        if (gap != 0.0 or r0["params"] > TRAIN_GRAD_RTOL * r0["scale"] + TRAIN_PARAM_ATOL
+                or strict and (r0["logs"] > DIST_LOG_RTOL or r0["bn_rel"] > DIST_BN_RTOL)):
+            raise AssertionError(f"two ranks against one process, {r0['case']}: {r0}")
+        for k in worst if strict else ():
+            worst[k] = max(worst[k], gap if k == "rank_gap" else r0[k])
+    log(f"[dist] the two-rank check took {pair_s:.1f} s (two spawned ranks, "
+        f"{len(DIST_CASES)} cases)")
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    pngs = _write_pngs(os.path.join(tmp.name, "pngs"), 64, 256, seed=3)
+    clips = _write_clips(os.path.join(tmp.name, "clips"), 2, 40, 256, seed=4)
+    keep = os.path.join(OUT_DIR, "dist")
+    os.makedirs(keep, exist_ok=True)
+    # NCCL at world size 1 through torchrun's environment: 8 image steps (the
+    # PNG folder: 4 batches an epoch), the eval after epoch 2 with image and
+    # video rows (--prop_img_vid 0 trains on images only), a sharded checkpoint
+    run = os.path.join(tmp.name, "nccl1")
+    common = ["--card", "videoseal_1.0", "--distributed", "1", "--image_dataset", pngs,
+              "--video_dataset", clips, "--prop_img_vid", "0", "--batch_size", "16",
+              "--batch_size_video", "2", "--frames_per_clip", str(F_TRAIN_CLIP), "--eval_freq", "2",
+              "--ckpt_format", "orbax", "--output_dir", run]
+    first = _run_ranks(1, common + ["--steps", str(TRAIN_STEPS)], keep, "nccl1")[0]
+    resumed = _run_ranks(1, common + ["--steps", "2", "--resume", os.path.join(run, "ckpts")],
+                         keep, "nccl1_resume", resume_dir=os.path.join(run, "ckpts"))[0]
+    add(first["launches"])
+    add(resumed["launches"])
+    exact = resumed["loaded_digest"] == first["digest"]
+    evals = [json.loads(ln) for ln in open(os.path.join(run, "eval.jsonl"))]
+    for f in ("log.txt", "eval.jsonl"):
+        shutil.copy(os.path.join(run, f), os.path.join(keep, f"nccl1_{f}"))
+    if (first["step"] != TRAIN_STEPS or resumed["loaded_step"] != TRAIN_STEPS
+            or resumed["step"] != TRAIN_STEPS + 2 or not exact):
+        raise AssertionError(f"NCCL run: {first['step']}, resumed from "
+                             f"{resumed['loaded_step']} to {resumed['step']}, exact {exact}")
+    modalities = [r["modality"] for r in evals]
+    if modalities != ["img", "vid"] or not all(
+            math.isfinite(v) for r in evals for k, v in r.items() if k != "modality"):
+        raise AssertionError(f"NCCL run's eval rows: {evals}")
+    want_k2 = 2 * 4 * sum(DEPTHS)          # 4 subset rows a modality, one call a row
+    if first["launches"]["K2"] != want_k2 or resumed["launches"]["K2"] != 0:
+        raise AssertionError(f"NCCL run: K2 {first['launches']['K2']} (expected {want_k2}), "
+                             f"resumed {resumed['launches']['K2']}")
+    timed_ms = first["step_ms"][2:]
+    q = np.percentile(timed_ms, [0, 25, 50, 75, 100])
+    log(f"[dist] {smi} | train.main --distributed 1, NCCL at world size 1, videoseal_1.0, "
+        f"batch 16 at 256x256: {q[2]:.2f} ms a step (CUDA events, median of steps "
+        f"3-{TRAIN_STEPS}; min {q[0]:.2f}, quartiles {q[1]:.2f}-{q[3]:.2f}, max {q[4]:.2f}; "
+        f"steps {[round(t, 2) for t in first['step_ms']]}) beside phase 17's "
+        f"{phase17['median_ms']:.2f} ms without a process group ({q[2] - phase17['median_ms']:+.2f} "
+        f"ms: the BatchNorm reductions, the gradient and log all-reduces); peak memory "
+        f"{first['peak_gib']:.2f} GiB (phase 17: {phase17['peak_gib']:.2f}); the eval's K2 "
+        f"{first['launches']['K2']} (image and video rows); sharded checkpoint at step "
+        f"{resumed['loaded_step']} restored bit for bit: {exact}; resumed to {resumed['step']}")
+    if torch.cuda.device_count() >= 2:
+        two = _run_ranks(2, common[:-1] + [os.path.join(tmp.name, "nccl2"), "--steps",
+                                           str(TRAIN_STEPS)], keep, "nccl2")
+        for r in two:
+            add(r["launches"])
+        if len({r["digest"] for r in two}) != 1:
+            raise AssertionError("NCCL at world size 2: the ranks' states differ")
+        med2 = float(np.median(two[0]["step_ms"][2:]))
+        log(f"[dist] {smi} | NCCL at world size 2 (two cards, batch 16 = 8 a rank): "
+            f"{med2:.2f} ms a step (median of steps 3-{TRAIN_STEPS}), peak "
+            f"{max(r['peak_gib'] for r in two):.2f} GiB a card; the ranks' states equal")
+    else:
+        log(f"[dist] NCCL at world size 2 not run: torch.cuda.device_count() is "
+            f"{torch.cuda.device_count()} (it needs two cards)")
+
+    # --video_dataset: 4 video steps (one 16-frame clip each) and the video eval
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    vid_run = os.path.join(tmp.name, "video")
+    reset_counts()
+    t0 = time.perf_counter()
+    vstate, _, vms = train.main(["--card", "videoseal_1.0", "--video_dataset", clips,
+                                 "--frames_per_clip", str(F_TRAIN_CLIP), "--batch_size_video",
+                                 "1", "--steps", "4", "--eval_freq", "1", "--output_dir",
+                                 vid_run])
+    vwall = time.perf_counter() - t0
+    got_vid = check_counts("video train", {"K2": 4 * sum(DEPTHS)})
+    add(got_vid)
+    vrows = [json.loads(ln) for ln in open(os.path.join(vid_run, "eval.jsonl"))]
+    if vstate.step != 4 or [r["modality"] for r in vrows] != ["vid"]:
+        raise AssertionError(f"video run: step {vstate.step}, eval rows {vrows}")
+    del vstate
+    torch.cuda.empty_cache()
+    log(f"[dist] {smi} | --video_dataset (2 mp4v clips, 16-frame clips at 256x256): 4 steps "
+        f"{[round(t, 1) for t in vms]} ms, main() wall {vwall:.1f} s; the eval's video rows "
+        f"{ {k: round(v, 4) for k, v in vrows[0].items() if k.startswith('vid_')} }; K2 "
+        f"{got_vid['K2']}")
+    # K2 at the video rows' shapes: 16 frames a launch, f32
+    k2_err = 0.0
+    for i, (h, w, c) in enumerate(STAGES):
+        p = cb.kernel_params(_random_block(c, 60 + i, dev, torch.float32))
+        x = torch.randn((F_TRAIN_CLIP, h, w, c),
+                        generator=torch.Generator(device=dev).manual_seed(i), device=dev)
+        a, ref = cb.convnext_block_fused(x, p).float(), cb.convnext_block_plain(x, p).float()
+        err = (a - ref).abs()
+        if not bool(torch.isfinite(a).all()) or bool((err > K2_ATOL + K2_RTOL * ref.abs()).any()):
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"{F_TRAIN_CLIP}x{h}x{w}x{c} f32")
+        k2_err = max(k2_err, float(err.max()))
+    log(f"[dist] K2 at the video rows' shapes ({F_TRAIN_CLIP} frames, f32) against its plain "
+        f"version: max abs err {k2_err:.3e}")
+
+    # lamb and adafactor on the card against the CPU
+    opts = _opt_card_vs_cpu(dev)
+
+    # evals.full --dataset over 4 PNGs, tools.eval_checkpoint on the video run's checkpoint
+    few = _write_pngs(os.path.join(tmp.name, "four"), 4, 256, seed=5)
+    reset_counts()
+    rows = full.main(["--card", "videoseal_1.0", "--dataset", few, "--device", "cuda",
+                      "--bdrate", "0", "--output_dir", os.path.join(tmp.name, "full")])
+    n_grid = len(rows)
+    # one NHWC embed of the sample (K4's blend mode), a detect a row
+    got_full = check_counts("evals.full --dataset", {"K4": 1, "K2": n_grid * sum(DEPTHS)})
+    add(got_full)
+    reset_counts()
+    erows = eval_checkpoint.main(["--checkpoint", os.path.join(vid_run, "checkpoint.npz"),
+                                  "--card", "videoseal_1.0", "--nbits", "256", "--img_size",
+                                  "256", "--scaling_w", "0.2", "--samples", "1",
+                                  "--sample_size", "256", "--device", "cuda", "--out_csv",
+                                  os.path.join(keep, "eval_checkpoint.csv")])
+    got_ec = check_counts("eval_checkpoint", {"K4": 1, "K2": len(erows) * sum(DEPTHS)})
+    add(got_ec)
+    bad = [r for r in rows + erows if not math.isfinite(r["bit_acc"])]
+    if bad or len(rows) != len(erows):
+        raise AssertionError(f"evals.full --dataset {len(rows)} rows, eval_checkpoint "
+                             f"{len(erows)}; not finite: {bad[:2]}")
+    log(f"[dist] evals.full --dataset (4 PNGs at 256x256): {len(rows)} rows, identity "
+        f"bit_acc {rows[0]['bit_acc']:.4f}, psnr {rows[0]['psnr']:.2f}; "
+        f"tools.eval_checkpoint on the video run's checkpoint: {len(erows)} rows, identity "
+        f"bit_acc {erows[0]['bit_acc']:.4f}")
+    tmp.cleanup()
+    return {"launches": launches, "two_ranks": recs[0], "two_ranks_worst": worst,
+            "nccl1": {k: first[k] for k in ("step_ms", "peak_gib", "launches", "wall_s")},
+            "nccl1_median_ms": float(q[2]), "nccl1_quartiles_ms": [float(v) for v in q],
+            "resume_exact": exact, "video": {"step_ms": vms, "k2": got_vid["K2"],
+                                             "eval": vrows[0]},
+            "k2_video_max_abs_err": k2_err, "optimizers": opts}
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -2172,13 +2678,14 @@ def main() -> int:
     rec["evals"] = phase_evals(dev, smi)
     rec["attacks"] = phase_attacks(dev, smi)
     rec["train"] = phase_train(dev, smi)
+    rec["dist"] = phase_dist(dev, smi, rec["train"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
-                                            "attacks", "train")]
+                                            "attacks", "train", "dist")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

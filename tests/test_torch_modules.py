@@ -65,6 +65,30 @@ def test_pixel_decoder_matches_linen(models):
     np.testing.assert_allclose(to_np(got), want, atol=1e-5)
 
 
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 3), (4, 1), (2, 2), (3, 5)])
+def test_reflect_pad_matches_jnp(h, w):
+    """The Upsample's pad is jnp.pad's "reflect" at every size: a size-1
+    axis repeats its value (nn.ReflectionPad2d raises there)."""
+    from videoseal_tpu_torch.modules.common import ReflectPad1
+    x = np.random.default_rng(h * 7 + w).normal(size=(2, 3, h, w)).astype(np.float32)
+    want = np.pad(x, [(0, 0), (0, 0), (1, 1), (1, 1)], mode="reflect")
+    np.testing.assert_array_equal(ReflectPad1()(torch.from_numpy(x)).numpy(), want)
+
+
+def test_extractor_at_32px_matches_linen(models):
+    """A 32-px input leaves convnext_tiny a 1x1 map before the pixel
+    decoder's Upsample (factor 1, then the reflect pad): the port's
+    differentiable route (module math, f32) against the linen module."""
+    jm, pm = models
+    x = np.random.default_rng(3).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(jm.extractor_spec.module.apply)(jm.extractor_vars,
+                                                              jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = pm.extractor(xt)
+    assert tuple(got.shape) == want.shape == (2, 1 + NBITS)
+    np.testing.assert_allclose(to_np(got.detach()), want, atol=2e-5)
+
+
 def test_proportional_dim_matches_jax():
     """chunkyseal's proportional_dim scales the ConvNeXt dims by
     sqrt(nbits / 128): the port's extractor has the JAX one's dims (the JAX

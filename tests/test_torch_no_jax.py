@@ -1,8 +1,9 @@
 """Guards for the machine that serves the port, which has no jax, flax, yaml
 or pandas: the package must import and run its planar and NHWC paths,
 loading by path, streaming, the metrics, the attack simulator, the evals,
-the losses and a few training steps (and the training entry point's --help)
-without them (and without cv2, which the streaming path and the exact
+the losses and a few training steps (with lamb, adafactor and the sharded
+checkpoint; and the training entry point's --help), and import every
+other module, without them (and without cv2, which the streaming path and the exact
 codecs import only where they need it)."""
 
 import os
@@ -114,6 +115,19 @@ state, _, step_ms = train.main(["--device", "cpu", "--tiny", "1", "--synthetic",
                                 "--eval_freq", "0", "--output_dir", os.path.join(tmp, "train")])
 assert state.step == 2 and len(step_ms) == 2
 assert os.path.exists(os.path.join(tmp, "train", "checkpoint.npz"))
+
+# the rest of training: the mesh, lamb and adafactor, the sharded checkpoint,
+# the datasets' and tools' modules
+from videoseal_tpu_torch.augmentation import doaugs  # noqa: F401
+from videoseal_tpu_torch.parallel import launch, mesh  # noqa: F401
+from videoseal_tpu_torch.tools import convert_lpips, eval_checkpoint  # noqa: F401
+from videoseal_tpu_torch.utils import checkpoint, dist, rle  # noqa: F401
+assert mesh.make_mesh().size == 1 and dist.get_world_size() == 1
+state, _, _ = train.main(["--device", "cpu", "--tiny", "1", "--synthetic", "1", "--steps", "1",
+                          "--batch_size", "2", "--img_size", "64", "--eval_freq", "0",
+                          "--optimizer", "adafactor,lr=1e-3", "--optimizer_d", "lamb,lr=1e-3",
+                          "--ckpt_format", "orbax", "--output_dir", os.path.join(tmp, "t2")])
+assert checkpoint.checkpoint_steps(os.path.join(tmp, "t2", "ckpts")) == [1]
 print("OK")
 """
 

@@ -31,23 +31,18 @@ import optax
 import pytest
 import torch
 
-from torch_port import _randomize
+from torch_port import TRAIN_EMB_CFG as EMB_CFG
+from torch_port import TRAIN_EXT_CFG as EXT_CFG
+from torch_port import TRAIN_NBITS as NBITS
+from torch_port import TRAIN_SIZE as SIZE
+from torch_port import port_train_mods, train_weights
 
 torch.set_num_threads(4)
 
-NBITS, SIZE = 8, 64
 LOG_RTOL, LOG_ATOL = 1e-4, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 JAX_COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
 PARAM_ATOL = 1e-6
-
-EMB_CFG = {"msg_processor": {"msg_processor_type": "binary+concat"},
-           "unet": {"in_channels": 1, "out_channels": 1, "z_channels": 4, "num_blocks": 1,
-                    "activation": "relu", "normalization": "batch",
-                    "z_channels_mults": [1, 2], "last_tanh": True}}
-EXT_CFG = {"encoder": {"depths": [1, 1, 1, 1], "dims": [8, 16, 32, 64]},
-           "pixel_decoder": {"pixelwise": False, "upscale_stages": [1], "embed_dim": 64,
-                             "sigmoid_output": False}}
 
 
 def _jax_mods(balanced: bool):
@@ -75,22 +70,8 @@ def _jax_mods(balanced: bool):
 @pytest.fixture(scope="module")
 def weights():
     """The tiny card's JAX variables (BN statistics and GRN randomised) and
-    the discriminator's, as numpy: the port's seeded init carried over by
-    the weight bridge (a JAX init would compile for ~15 s)."""
-    from videoseal_tpu_torch.models.embedder import build_embedder
-    from videoseal_tpu_torch.models.extractor import build_extractor
-    from videoseal_tpu_torch.models.videoseal import init_weights
-    from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
-    from videoseal_tpu_torch.utils.convert import disc_to_jax, to_jax_variables
-    emb = build_embedder("unet_tiny_yuv", EMB_CFG, NBITS, 2).module
-    ext = build_extractor("convnext_tiny", EXT_CFG, SIZE, NBITS).module
-    disc = NLayerDiscriminator(ndf=8, n_layers=2)
-    gen = torch.Generator().manual_seed(0)
-    for m in (emb, ext, disc):
-        init_weights(m, gen)
-    ev, xv = to_jax_variables(emb.state_dict(), ext.state_dict())
-    rng = np.random.default_rng(5)
-    return _randomize(ev, rng), _randomize(xv, rng), disc_to_jax(disc.state_dict())
+    the discriminator's, as numpy (torch_port.train_weights)."""
+    return train_weights()
 
 
 def _port_sds(ev, xv, dv):
@@ -100,30 +81,7 @@ def _port_sds(ev, xv, dv):
 
 
 def _port_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0"):
-    from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
-    from videoseal_tpu_torch.losses.videosealloss import VideoSealLoss
-    from videoseal_tpu_torch.models.embedder import build_embedder
-    from videoseal_tpu_torch.models.extractor import build_extractor
-    from videoseal_tpu_torch.models.videoseal import PipelineConfig
-    from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
-    from videoseal_tpu_torch.modules.jnd import JND
-    from videoseal_tpu_torch.parallel.trainer import TrainerModules, create_train_state
-
-    emb = build_embedder("unet_tiny_yuv", EMB_CFG, NBITS, 2).module
-    ext = build_extractor("convnext_tiny", EXT_CFG, SIZE, NBITS).module
-    disc = NLayerDiscriminator(ndf=8, n_layers=2)
-    esd, xsd, dsd = _port_sds(*weights)
-    emb.load_state_dict(esd)
-    ext.load_state_dict(xsd)
-    disc.load_state_dict(dsd)
-    mods = TrainerModules(
-        embedder=emb, extractor=ext, discriminator=disc, augmenter=get_dummy_augmenter(),
-        attenuation=JND(), cfg=PipelineConfig(img_size=SIZE, chunk_size=4, step_size=2,
-                                              yuv=True, nbits=NBITS),
-        loss=VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
-                           decode_weight=1.0, detect_weight=0.0),
-        balanced=balanced)
-    return mods, create_train_state(mods, opt, opt)
+    return port_train_mods(weights, balanced, opt)
 
 
 def _jax_step(weights, balanced, is_video, mode, imgs, seed):
@@ -321,11 +279,14 @@ def test_optimizer_matches_optax(spec, make, schedule):
 
 
 def test_unported_optimizers_raise():
-    from videoseal_tpu_torch.utils.optim import build_optimizer
+    """lamb and adafactor are built (as optax builds them: held against
+    optax in test_torch_optim.py); a name neither package knows raises."""
+    from videoseal_tpu_torch.utils.optim import Adafactor, Lamb, build_optimizer
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for name in ("lamb", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
-            build_optimizer(f"{name},lr=1e-3", p)
+    assert isinstance(build_optimizer("lamb,lr=1e-3", p), Lamb)
+    assert isinstance(build_optimizer("adafactor,lr=1e-3", p), Adafactor)
+    with pytest.raises(NotImplementedError, match="optimizer rmsprop"):
+        build_optimizer("RMSprop,lr=1e-3", p)
 
 
 def test_scaling_schedule_matches_jax():
@@ -437,27 +398,29 @@ def test_train_main_image_folder(tmp_path):
 
 def test_train_main_refuses():
     from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.parallel.mesh import make_mesh
     if not torch.cuda.is_available():       # the card is the default device
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--tiny", "1"])
     base = ["--device", "cpu", "--tiny", "1"]
-    for extra in (["--distributed", "1"], ["--ckpt_format", "orbax"],
-                  ["--video_dataset", "clips/"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
-            train.main(base + extra)
+    # a frames axis is the one part of ROADMAP 1.8 left
+    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+        make_mesh(n_frames=2)
     with pytest.raises(ValueError, match="JSON"):
         train.main(base + ["--augmentation_config", "augs.yaml"])
 
 
 def test_jax_train_state_refused(tmp_path):
-    """A train state the JAX package wrote (optax trees by leaf index) is
-    refused with a pointer to ROADMAP 1.8."""
+    """A train state the JAX package wrote resumes (test_torch_optim.py);
+    one whose treedef holds an optax state the port has no counterpart for
+    is refused with ValueError naming it."""
     from videoseal_tpu_torch import train
     from videoseal_tpu_torch.utils import checkpoint as ckpt_io
     path = str(tmp_path / "jax_state.npz")
-    np.savez(path, **{"__treedef__embedder_params": np.zeros(3, np.uint8),
-                      "step": np.asarray(3)})
+    text = "PyTreeDef((CustomNode(namedtuple[ScaleByRssState], [*]),))"
+    np.savez(path, **{"__treedef__embedder_params": np.frombuffer(text.encode(), np.uint8),
+                      "embedder_params//0": np.zeros(3, np.float32), "step": np.asarray(3)})
     args = train.get_parser().parse_args(["--device", "cpu", "--tiny", "1"])
     _, state, _ = train.build_trainer(args, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+    with pytest.raises(ValueError, match="ScaleByRssState"):
         ckpt_io.load_train_state(path, state)

@@ -9,6 +9,7 @@ the weights through ``videoseal_tpu_torch.utils.convert.from_jax_variables``.
 from __future__ import annotations
 
 import copy
+import json
 
 import numpy as np
 import torch
@@ -147,3 +148,171 @@ def port_model(card: dict, jm):
 
 def to_np(t) -> np.ndarray:
     return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+# -- the training tests' tiny modules (test_torch_train, _dist, _optim) --------------
+
+TRAIN_NBITS, TRAIN_SIZE = 8, 64
+TRAIN_EMB_CFG = {"msg_processor": {"msg_processor_type": "binary+concat"},
+                 "unet": {"in_channels": 1, "out_channels": 1, "z_channels": 4,
+                          "num_blocks": 1, "activation": "relu", "normalization": "batch",
+                          "z_channels_mults": [1, 2], "last_tanh": True}}
+TRAIN_EXT_CFG = {"encoder": {"depths": [1, 1, 1, 1], "dims": [8, 16, 32, 64]},
+                 "pixel_decoder": {"pixelwise": False, "upscale_stages": [1],
+                                   "embed_dim": 64, "sigmoid_output": False}}
+
+
+def train_weights():
+    """(embedder, extractor, discriminator) JAX variables as numpy: the
+    port's seeded init carried over by the weight bridge, BatchNorm
+    statistics and GRN randomised (a JAX init would compile for ~15 s)."""
+    from videoseal_tpu_torch.models.embedder import build_embedder
+    from videoseal_tpu_torch.models.extractor import build_extractor
+    from videoseal_tpu_torch.models.videoseal import init_weights
+    from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
+    from videoseal_tpu_torch.utils.convert import disc_to_jax, to_jax_variables
+    emb = build_embedder("unet_tiny_yuv", TRAIN_EMB_CFG, TRAIN_NBITS, 2).module
+    ext = build_extractor("convnext_tiny", TRAIN_EXT_CFG, TRAIN_SIZE, TRAIN_NBITS).module
+    disc = NLayerDiscriminator(ndf=8, n_layers=2)
+    gen = torch.Generator().manual_seed(0)
+    for m in (emb, ext, disc):
+        init_weights(m, gen)
+    ev, xv = to_jax_variables(emb.state_dict(), ext.state_dict())
+    rng = np.random.default_rng(5)
+    return _randomize(ev, rng), _randomize(xv, rng), disc_to_jax(disc.state_dict())
+
+
+def port_train_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0", mesh=None,
+                    augmenter=None):
+    """(TrainerModules, TrainState) of the port at the tiny training card
+    holding `weights`, the dummy augmenter unless one is given."""
+    from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
+    from videoseal_tpu_torch.losses.videosealloss import VideoSealLoss
+    from videoseal_tpu_torch.models.embedder import build_embedder
+    from videoseal_tpu_torch.models.extractor import build_extractor
+    from videoseal_tpu_torch.models.videoseal import PipelineConfig
+    from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
+    from videoseal_tpu_torch.modules.jnd import JND
+    from videoseal_tpu_torch.parallel.trainer import TrainerModules, create_train_state
+    from videoseal_tpu_torch.utils.convert import disc_from_jax, from_jax_variables
+
+    emb = build_embedder("unet_tiny_yuv", TRAIN_EMB_CFG, TRAIN_NBITS, 2).module
+    ext = build_extractor("convnext_tiny", TRAIN_EXT_CFG, TRAIN_SIZE, TRAIN_NBITS).module
+    disc = NLayerDiscriminator(ndf=8, n_layers=2)
+    esd, xsd = from_jax_variables(weights[0], weights[1])
+    emb.load_state_dict(esd)
+    ext.load_state_dict(xsd)
+    disc.load_state_dict(disc_from_jax(weights[2]))
+    mods = TrainerModules(
+        embedder=emb, extractor=ext, discriminator=disc,
+        augmenter=augmenter or get_dummy_augmenter(), attenuation=JND(),
+        cfg=PipelineConfig(img_size=TRAIN_SIZE, chunk_size=4, step_size=2, yuv=True,
+                           nbits=TRAIN_NBITS),
+        loss=VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
+                           decode_weight=1.0, detect_weight=0.0),
+        balanced=balanced, mesh=mesh)
+    return mods, create_train_state(mods, opt, opt)
+
+
+def step_record(state, logs) -> dict:
+    """What a step left: its logs, each parameter's gradient and new value
+    (named "<0 embedder | 1 extractor | 2 discriminator>.<name>") and the
+    embedder's BatchNorm statistics, all on the CPU."""
+    mods = (state.embedder, state.extractor, state.discriminator)
+    named = [(f"{i}.{n}", p) for i, m in enumerate(mods) for n, p in m.named_parameters()]
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in named if p.grad is not None},
+            "params": {k: p.detach().cpu().clone() for k, p in named},
+            "bn": {n: b.detach().cpu().clone() for n, b in state.embedder.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))}}
+
+
+def rank_train_steps(rank, weights, cases):
+    """Run on each rank of a process group (``parallel.launch.run_local``):
+    for each case (imgs, msgs, balanced, is_video, augs config or None,
+    generator seed), one SGD step at lr 1 on the rank's rows of the global
+    batch `imgs`; msgs (the global batch's) injected where given."""
+    from videoseal_tpu_torch.augmentation.augmenter import build_augmenter
+    from videoseal_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    torch.set_num_threads(1)
+    mesh = make_mesh()
+    out = []
+    for imgs, msgs, balanced, is_video, augs, seed in cases:
+        aug = build_augmenter(augs, num_augs=2) if augs else None
+        mods, state = port_train_mods(weights, balanced, mesh=mesh, augmenter=aug)
+        step = make_train_step(mods, is_video=is_video)
+        _, logs = step(state, {"imgs": shard_batch(mesh, torch.from_numpy(imgs))},
+                       torch.Generator().manual_seed(seed),
+                       msgs=None if msgs is None else torch.from_numpy(msgs))
+        out.append(step_record(state, logs))
+    return out
+
+
+def rank_collectives(rank, x, tmp):
+    """The BatchNorm, gather, metric and checkpoint collectives on a rank."""
+    import torch.nn.functional as F
+
+    from videoseal_tpu_torch.modules.common import BatchNorm2d
+    from videoseal_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+    from videoseal_tpu_torch.utils import checkpoint as ckpt_io
+    from videoseal_tpu_torch.utils.dist import average_metrics
+    from videoseal_tpu_torch.utils.logger import MetricLogger
+    mesh = make_mesh()
+    bn = BatchNorm2d(x.shape[1])
+    bn.group = mesh.group
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(0))
+        bn.bias.normal_(generator=torch.Generator().manual_seed(1))
+    xl = shard_batch(mesh, torch.from_numpy(x)).requires_grad_(True)
+    y = bn(xl)
+    w = torch.linspace(-1, 1, y.numel()).view(y.shape[::-1]).permute(3, 2, 1, 0) + rank
+    F.relu(y * w).sum().backward()
+    g = gather_batch(xl * 2.0, mesh)
+    logger = MetricLogger()
+    logger.update(a=float(rank), b=1.0)
+    logger.sync()
+    res = {"y": y.detach(), "dx": xl.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+           "running": (bn.running_mean.clone(), bn.running_var.clone()),
+           "gathered": g.detach(), "avg": average_metrics({"m": rank + 1.0}),
+           "meters": {k: (m.total, m.count) for k, m in logger.meters.items()}}
+    _, state = port_train_mods(train_weights(), False, opt="AdamW,lr=1e-3", mesh=mesh)
+    for p in state.embedder.parameters():
+        p.grad = torch.ones_like(p)
+    state.opt_g.step()
+    state.step = 7
+    ckpt_io.save_train_state_sharded(tmp, state)
+    _, fresh = port_train_mods(train_weights(), False, opt="AdamW,lr=1e-3", mesh=mesh)
+    res["loaded_step"] = ckpt_io.load_train_state_sharded(tmp, fresh)
+    res["same"] = same_state(state, fresh)
+    return res
+
+
+def same_state(a, b) -> bool:
+    for m in ("embedder", "extractor", "discriminator"):
+        sa, sb = getattr(a, m).state_dict(), getattr(b, m).state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    oa, ob = a.opt_g.state_dict(), b.opt_g.state_dict()
+    groups = [json.loads(json.dumps(o["param_groups"])) for o in (oa, ob)]   # tuples as lists
+    return (groups[0] == groups[1] and oa["state"].keys() == ob["state"].keys()
+            and all(torch.equal(oa["state"][i][k], ob["state"][i][k])
+                    for i in oa["state"] for k in oa["state"][i])
+            and a.step == b.step and a.scaling_w == b.scaling_w)
+
+
+def rank_train_main(rank, out):
+    """train.main --distributed 1 on a rank: 2 steps with a sharded
+    checkpoint, then 1 step resumed from it."""
+    import os
+
+    from videoseal_tpu_torch import train
+    common = ["--device", "cpu", "--tiny", "1", "--img_size", "64", "--distributed", "1",
+              "--synthetic", "1", "--batch_size", "4", "--eval_freq", "1", "--eval_samples",
+              "2", "--eval_augs", "identity", "--iter_per_epoch", "2", "--ckpt_format", "orbax",
+              "--output_dir", out]
+    torch.set_num_threads(1)
+    state, _, step_ms = train.main(common + ["--steps", "2"])
+    saved = {k: v.clone() for k, v in state.embedder.state_dict().items()}
+    resumed, _, _ = train.main(common + ["--steps", "1", "--resume", os.path.join(out, "ckpts")])
+    return {"step": state.step, "n_ms": len(step_ms), "saved": saved, "resumed": resumed.step}

@@ -86,13 +86,20 @@ class Augmenter:
         return [a.name for a in (self.augs_video if is_video else self.augs)]
 
     def __call__(self, generator: torch.Generator, imgs_w, imgs, masks=None,
-                 is_video: bool = False, train: bool = True):
-        """Returns (imgs_aug, mask_targets, [selected index, ...])."""
+                 is_video: bool = False, train: bool = True, mesh=None):
+        """Returns (imgs_aug, mask_targets, [selected index, ...]).
+
+        With a data-parallel `mesh` (``parallel.mesh.Mesh``; the images are
+        this rank's rows of the global batch) every rank makes the same
+        draws: the aug choice, parameters drawn for the global batch's
+        shape and sliced to the rank's rows, and an aug that mixes frames
+        applied to the gathered global batch. The result is the rank's rows
+        of what one process gets on the whole batch."""
         augs = self.augs_video if is_video else self.augs
         probs = torch.as_tensor(self.probs_video if is_video else self.probs,
                                 dtype=torch.float64, device=generator.device)
         if train:
-            mask_targets = self.mask_sampler(generator, imgs_w, masks)
+            mask_targets = self.mask_sampler(generator, imgs_w, masks, mesh)
             imgs_aug = imgs_w * mask_targets + imgs * (1 - mask_targets)
         else:
             mask_targets = torch.ones_like(imgs_w[..., 0:1])
@@ -100,9 +107,27 @@ class Augmenter:
         selected = []
         for _ in range(self.num_augs):
             idx = int(torch.multinomial(probs, 1, generator=generator))
-            imgs_aug, mask_targets = augs[idx].apply(generator, imgs_aug, mask_targets)
+            if mesh is None or mesh.size == 1:
+                imgs_aug, mask_targets = augs[idx].apply(generator, imgs_aug, mask_targets)
+            else:
+                imgs_aug, mask_targets = _apply_sharded(augs[idx], generator, imgs_aug,
+                                                        mask_targets, mesh)
             selected.append(idx)
         return imgs_aug, mask_targets, selected
+
+
+def _apply_sharded(aug, generator, img, mask, mesh):
+    """`aug` on a rank's rows of the global batch, with the draws of the
+    whole batch."""
+    from ..parallel.mesh import gather_batch
+    n = img.shape[0]
+    rows = mesh.shard(n * mesh.size)
+    params = aug.sample(generator, img.new_empty((n * mesh.size,) + tuple(img.shape[1:]),
+                                                 device="meta"))
+    if not aug.couples_samples:
+        return aug.transform(img, mask, aug.shard_params(params, rows))
+    out, out_mask = aug.transform(gather_batch(img, mesh), gather_batch(mask, mesh), params)
+    return out[rows], out_mask[rows]
 
 
 def get_dummy_augmenter() -> Augmenter:

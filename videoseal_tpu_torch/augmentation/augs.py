@@ -57,10 +57,18 @@ def eval_generator() -> torch.Generator:
 
 
 class Aug:
+    """`couples_samples`: the transform mixes batch entries (frames), so
+    under data parallelism it runs on the gathered global batch;
+    `shard_params` takes a rank's rows of parameters drawn for the global
+    batch (``Augmenter.__call__`` with a mesh)."""
     name = "aug"
+    couples_samples = False
 
     def sample(self, generator: torch.Generator, img: torch.Tensor):
         return None
+
+    def shard_params(self, params, rows: slice):
+        return params
 
     def transform(self, img, mask, params):
         raise NotImplementedError
@@ -401,6 +409,10 @@ class GaussianNoise(Aug):
         std, noise = params
         return img + std * noise.to(img.device, img.dtype), mask
 
+    def shard_params(self, params, rows: slice):
+        std, noise = params
+        return std, noise[rows]
+
     def apply_strength(self, img, mask, strength):
         noise = torch.randn(tuple(img.shape), generator=eval_generator())
         return self.transform(img, mask, (strength, noise))
@@ -447,6 +459,7 @@ class SpeedChange(Aug):
     frame)."""
     min_speed: float = 0.5
     max_speed: float = 2.0
+    couples_samples = True
     name = "speed_change"
 
     def sample(self, generator, img):
@@ -467,6 +480,7 @@ class TemporalReorder(Aug):
     """Swap adjacent frame pairs, each with some probability."""
     chunk_size: int = 4
     swap_probability: float = 0.5
+    couples_samples = True
     name = "temporal_reorder"
 
     def sample(self, generator, img):
@@ -491,6 +505,7 @@ class WindowAveraging(Aug):
     """Sliding-window temporal blend."""
     window_size: int = 3
     alpha: float = 1.0
+    couples_samples = True
     name = "window_averaging"
 
     def transform(self, img, mask, params=None):
@@ -510,6 +525,7 @@ class DropFrame(Aug):
     """Replace random frames with their left neighbour."""
     min_prob: float = 0.2
     max_prob: float = 0.5
+    couples_samples = True
     name = "drop_frame"
 
     def sample(self, generator, img):
@@ -557,6 +573,7 @@ class VideoCompressionExact(Aug):
     max_crf: int = 36
     codec: str = "h264"
     fps: int = 24
+    couples_samples = True
     name = "h264"
 
     def __post_init__(self):
@@ -582,6 +599,7 @@ class VideoCompressionProxy(Aug):
     max_crf: int = 36
     codec: str = "h264"
     temporal_mix: float = 0.15
+    couples_samples = True
     name = "h264"
 
     def __post_init__(self):

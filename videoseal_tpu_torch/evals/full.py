@@ -15,8 +15,9 @@ clock on the CPU; the row's ``timer`` column says which, and
   python -m videoseal_tpu_torch.evals.full --card videoseal_1.0 --is_video 0
   python -m videoseal_tpu_torch.evals.full --device cpu
 
-The samples are procedural synthetic images (``synthetic_samples``); a
-dataset waits for ``data/datasets.py`` (ROADMAP item 1.8).
+The samples are a folder's images (or clips, with --is_video) through
+``data/datasets.iter_samples`` with --dataset, else procedural synthetic
+images (``synthetic_samples``).
 """
 
 from __future__ import annotations
@@ -201,6 +202,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--card", default="videoseal_1.0")
     ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--dataset", default=None,
+                    help="a folder of images (of videos with --is_video 1)")
     ap.add_argument("--is_video", type=int, default=0)
     ap.add_argument("--num_samples", type=int, default=2)
     ap.add_argument("--output_dir", default="outputs")
@@ -223,10 +226,15 @@ def main(argv=None):
         model.scaling_w = args.scaling_w
     if args.videoseal_step_size is not None:
         model.cfg = dataclasses.replace(model.cfg, step_size=args.videoseal_step_size)
-    shape = (8, 256, 256, 3) if args.is_video else (4, 256, 256, 3)
+    if args.dataset:
+        from ..data.datasets import iter_samples
+        samples = iter_samples(args.dataset, is_video=bool(args.is_video))
+    else:
+        shape = (8, 256, 256, 3) if args.is_video else (4, 256, 256, 3)
+        samples = synthetic_samples(args.num_samples, shape)
     os.makedirs(args.output_dir, exist_ok=True)
     augs = get_validation_augs(bool(args.is_video), only_identity=bool(args.only_identity))
-    return evaluate(model, synthetic_samples(args.num_samples, shape),
+    return evaluate(model, samples,
                     is_video=bool(args.is_video), validation_augs=augs,
                     aggregation=args.video_aggregation,
                     out_csv=os.path.join(args.output_dir, "metrics.csv"),

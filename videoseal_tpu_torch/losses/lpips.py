@@ -258,8 +258,8 @@ def build(name: str, weights_dir: str | None = None):
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"{name} needs converted weights at {path}: the VGG16/AlexNet weights and "
-            f"the loss's trained parameters, converted offline (no converter is "
-            f"ported yet: ROADMAP.md 1.8)")
+            f"the loss's trained parameters, converted offline by "
+            f"`python -m videoseal_tpu_torch.tools.convert_lpips`")
 
     def fn(x, y):
         key = (path, x.device)

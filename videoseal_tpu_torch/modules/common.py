@@ -97,15 +97,75 @@ class ChanRMSNorm(nn.Module):
         return x / torch.clamp(norm, min=1e-12) * self.scale * self.gamma
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalisation over the batch of every rank of `group`
+    (NCHW). Forward: each rank's count, mean and centred sum of squares in
+    one all-reduce (a row per rank, combined in rank order). Backward: the
+    sums of dy and dy * xhat over every rank in one all-reduce, then
+    BatchNorm's usual input gradient; the affine parameters' gradients are
+    the rank's own (the step averages them over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        import torch.distributed as dist
+        c, rank, world = x.shape[1], dist.get_rank(group), dist.get_world_size(group)
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        n = float(x.numel() // c)
+        rows = x.new_zeros((world, 2 * c + 1), dtype=torch.float32)
+        rows[rank] = torch.cat([mean, var * n, mean.new_full((1,), n)])
+        dist.all_reduce(rows, group=group)
+        counts = rows[:, -1:]
+        total = counts.sum()
+        g_mean = (rows[:, :c] * counts).sum(0) / total
+        g_var = (rows[:, c:2 * c].sum(0) + ((rows[:, :c] - g_mean) ** 2 * counts).sum(0)) / total
+        invstd = torch.rsqrt(g_var + eps)
+        xhat = (xf - g_mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, total)
+        ctx.group = group
+        ctx.mark_non_differentiable(g_mean, g_var)
+        y = xhat * weight.float()[:, None, None] + bias.float()[:, None, None]
+        return y.to(x.dtype), g_mean, g_var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+        xhat, weight, invstd, total = ctx.saved_tensors
+        dyf = dy.float()
+        local = torch.stack([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        scale = (weight.float() * invstd)[:, None, None]
+        dx = (dyf - sums[0][:, None, None] / total
+              - xhat * (sums[1] / total)[:, None, None]) * scale
+        return (dx.to(dy.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype),
+                None, None)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode updates the running variance with
     the batch's biased variance, as flax's ``nn.BatchNorm`` (momentum 0.9)
     does; torch's own uses the unbiased one, n/(n-1) times larger. The
-    state dict is ``nn.BatchNorm2d``'s."""
+    state dict is ``nn.BatchNorm2d``'s.
+
+    With `group` set (``parallel.mesh.use_data_group``), train mode
+    normalises with the statistics of the global batch, as the JAX step
+    over a batch sharded on ``data`` does, and its backward carries both
+    cross-rank terms (`_GlobalBatchNorm`)."""
+
+    group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                  self.group)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                self.num_batches_tracked += 1
+            return y
         with torch.no_grad():
             xs = x.to(self.running_mean.dtype)
             self.running_mean.lerp_(xs.mean(dim=(0, 2, 3)), self.momentum)
@@ -146,6 +206,16 @@ class Interpolate(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+class ReflectPad1(nn.Module):
+    """Pad H and W of NCHW input by 1 in ``jnp.pad``'s "reflect" mode: a
+    size-1 axis repeats its value, where ``nn.ReflectionPad2d`` raises."""
+
+    def forward(self, x):
+        for pad, n in (((1, 1, 0, 0), x.shape[-1]), ((0, 0, 1, 1), x.shape[-2])):
+            x = F.pad(x, pad, mode="reflect" if n > 1 else "replicate")
+        return x
+
+
 class Upsample(nn.Module):
     """Bilinear upscale block on NCHW: resample -> reflect pad -> 3x3 conv
     -> channel LN -> act. `upsample_block` indices follow the reference."""
@@ -158,7 +228,7 @@ class Upsample(nn.Module):
                 f"upscale_type {upscale_type!r}: ROADMAP.md 1.9")
         self.upsample_block = nn.Sequential(
             Interpolate(up_factor),
-            nn.ReflectionPad2d(1),
+            ReflectPad1(),
             nn.Conv2d(in_channels, out_channels, 3, bias=False),
             ChannelLayerNorm(out_channels),
             get_activation(activation),

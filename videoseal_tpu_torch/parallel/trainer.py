@@ -12,8 +12,22 @@ discriminator's step on the real images and the detached watermarked ones.
 The step differentiates the modules, not the kernels: with grad enabled the
 extractor takes its differentiable route (``modules/convnext.py``), as the
 JAX step applies the linen modules. It runs in float32, without autocast.
-Video batches are (V, F, H, W, 3) with one message per clip. One process,
-one device: multi-GPU training is ROADMAP.md 1.8.
+Video batches are (V, F, H, W, 3) with one message per clip.
+
+Data parallelism (``mods.mesh``, a ``parallel.mesh.Mesh`` with a process
+group): each rank steps on its contiguous slice of the global batch (equal
+slices: the caller refuses a global batch the world size does not divide)
+and the step gives JAX's global-batch result. The messages and every
+augmenter draw are made for the global batch from the same generator state
+on every rank and sliced; BatchNorm normalises with the global batch's
+statistics (``modules/common.BatchNorm2d``); the balance's per-loss
+gradient norms are the square root of the ranks' summed squares (the local
+losses are means over a rank's rows, so each rank's gradient is the size
+times its part of the global one); the gradients are averaged over the
+group by one all-reduce per optimizer, explicitly rather than with
+``DistributedDataParallel``, whose reducer fires on every backward and
+expects one per forward, where this step takes a gradient per loss and
+runs the discriminator under a functional call; the logs are averaged.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..losses.videosealloss import VideoSealLoss
@@ -63,6 +78,7 @@ class TrainerModules:
     scaling_i: float = 1.0
     temperature: float = 1.0
     balanced: bool = True
+    mesh: Any = None             # parallel.mesh.Mesh, or None for one process
 
 
 def create_train_state(mods: TrainerModules, optimizer_g: str, optimizer_d: str,
@@ -71,7 +87,16 @@ def create_train_state(mods: TrainerModules, optimizer_g: str, optimizer_d: str,
     """Optimizers over mods' modules, as they stand (built, initialised and
     on their device): the generator's over the embedder's and then the
     extractor's parameters, the discriminator's over its own; `schedule`
-    (a per-step lr function) drives the generator's under a LambdaLR."""
+    (a per-step lr function) drives the generator's under a LambdaLR.
+    With a data group the BatchNorms take it and every rank starts from
+    rank 0's parameters and buffers."""
+    if mods.mesh is not None and mods.mesh.group is not None:
+        from .mesh import use_data_group
+        src = dist.get_global_rank(mods.mesh.group, 0)
+        for m in (mods.embedder, mods.extractor, mods.discriminator):
+            use_data_group(m, mods.mesh)
+            for t in m.state_dict().values():
+                dist.broadcast(t, src=src, group=mods.mesh.group)
     gen_params = list(mods.embedder.parameters()) + list(mods.extractor.parameters())
     opt_g = build_optimizer(optimizer_g, gen_params)
     opt_d = build_optimizer(optimizer_d, mods.discriminator.parameters())
@@ -124,6 +149,26 @@ def _frozen(module: nn.Module) -> Callable:
     return lambda x: torch.func.functional_call(module, params, (x,))
 
 
+def _average_grads(params, mesh) -> None:
+    """Each gradient replaced by its mean over the data group: one
+    all-reduce of the gradients laid end to end."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    flat /= mesh.size
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def _average_logs(logs: dict, mesh) -> dict:
+    keys = [k for k, v in logs.items() if isinstance(v, torch.Tensor)]
+    vec = torch.stack([logs[k].detach().float().reshape(()) for k in keys])
+    dist.all_reduce(vec, group=mesh.group)
+    return {**logs, **dict(zip(keys, (vec / mesh.size).unbind()))}
+
+
 def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "both") -> Callable:
     """The step: train_step(state, batch, generator, msgs=None) -> (state,
     logs), updating state in place. batch: {"imgs": (B, H, W, 3) or (V, F,
@@ -132,19 +177,26 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
     augmenter's draws come from `generator`, on that device; `msgs` injects
     the messages instead. mode: "both" (the reference's default), "gen" or
     "disc" (the sleepwake alternation). After the step each parameter's
-    .grad holds the gradient its optimizer took (None where none did)."""
+    .grad holds the gradient its optimizer took (None where none did).
+    With a data group (mods.mesh) the batch is this rank's rows and `msgs`,
+    when given, the global batch's."""
     if mode not in ("both", "gen", "disc"):
         raise ValueError(f"mode must be both, gen or disc, got {mode!r}")
     cfg, loss_cfg = mods.cfg, mods.loss
     s = cfg.img_size
+    mesh = mods.mesh if mods.mesh is not None and mods.mesh.group is not None else None
+    size = mesh.size if mesh is not None else 1
+    gen_params = lambda st: list(st.embedder.parameters()) + list(st.extractor.parameters())
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
                    msgs: torch.Tensor | None = None):
         imgs = batch["imgs"]
         masks = batch.get("masks")
         if msgs is None:
-            msgs = torch.randint(0, 2, (imgs.shape[0], cfg.nbits), generator=generator,
+            msgs = torch.randint(0, 2, (imgs.shape[0] * size, cfg.nbits), generator=generator,
                                  device=generator.device)
+        if mesh is not None:
+            msgs = msgs[mesh.shard(imgs.shape[0] * size)]
         msgs = msgs.to(imgs.device)
         imgs_flat = imgs.reshape((-1,) + tuple(imgs.shape[-3:]))
         masks_flat = (masks.reshape((-1,) + tuple(masks.shape[-3:]))
@@ -159,7 +211,7 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
         preds_w, msgs_frames = embed_batch(mods, state.embedder, imgs, msgs, is_video)
         imgs_w = watermark(mods, imgs_flat, preds_w, state.scaling_w)
         imgs_aug, mask_t, _ = mods.augmenter(generator, imgs_w, imgs_flat, masks_flat,
-                                             is_video=is_video, train=True)
+                                             is_video=is_video, train=True, mesh=mesh)
         preds = state.extractor(resize_bilinear(imgs_aug, s, s)) / mods.temperature
         losses, weights = loss_cfg.generator_losses(
             imgs_flat, imgs_w, mask_t, msgs_frames, preds, _frozen(state.discriminator),
@@ -168,13 +220,19 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
         if mode in ("both", "gen"):
             grad_norms = None
             if mods.balanced and len(losses) > 1:
-                grad_norms = {}
-                for k, v in losses.items():
+                sq = []
+                for v in losses.values():
                     (g,) = torch.autograd.grad(v, preds_w, retain_graph=True, allow_unused=True)
-                    grad_norms[k] = (torch.sqrt(torch.sum(g.float() ** 2)).detach()
-                                     if g is not None else torch.zeros((), device=v.device))
+                    sq.append(torch.sum(g.float() ** 2).detach() if g is not None
+                              else torch.zeros((), device=v.device))
+                sq = torch.stack(sq)
+                if mesh is not None:
+                    dist.all_reduce(sq, group=mesh.group)
+                grad_norms = dict(zip(losses, (torch.sqrt(sq) / size).unbind()))
             total, logs = loss_cfg.combine(losses, weights, grad_norms)
             total.backward()
+            if mesh is not None:
+                _average_grads(gen_params(state), mesh)
             state.opt_g.step()
             if state.sched_g is not None:
                 state.sched_g.step()
@@ -185,6 +243,8 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
             d_loss, d_logs = loss_cfg.discriminator_loss(state.discriminator, imgs_flat, imgs_w,
                                                          state.step)
             d_loss.backward()
+            if mesh is not None:
+                _average_grads(state.discriminator.parameters(), mesh)
             state.opt_d.step()
             logs.update(d_logs)
 
@@ -194,7 +254,7 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
             logs["bit_acc"] = torch.nanmean(bit_accuracy(
                 bits, msgs_frames, mask_t if bits.ndim == 4 else None))
         state.step += 1
-        return state, {k: v.detach() if isinstance(v, torch.Tensor) else v
-                       for k, v in logs.items()}
+        logs = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in logs.items()}
+        return state, _average_logs(logs, mesh) if mesh is not None else logs
 
     return train_step

@@ -2,17 +2,23 @@
 
 Wires the data -> the Augmenter -> the GAN train step
 (``parallel/trainer.py``) -> logging, the periodic in-training eval and the
-checkpoints. One process on one device: the card unless ``--device cpu``.
+checkpoints. One process on the card unless ``--device cpu``; with
+``--distributed 1`` one process per rank (torchrun's or SLURM's
+environment, ``utils/dist.py``), data parallel over the global batch
+``--batch_size`` (which the world size must divide), rank 0 alone logging
+and writing ``.npz`` checkpoints.
 
 Smoke run (synthetic data, tiny model, on the CPU):
   python -m videoseal_tpu_torch.train --device cpu --tiny 1 --synthetic 1 --steps 3
 On the card:
   python -m videoseal_tpu_torch.train --card videoseal_1.0 \\
       --image_dataset /data/coco --epochs 100 --iter_per_epoch 1000
+  torchrun --nproc_per_node 8 -m videoseal_tpu_torch.train --distributed 1 ...
 
-Refused (ROADMAP.md 1.8): --distributed 1, --ckpt_format orbax,
---video_dataset, resuming from a JAX-written train state, the lamb and
-adafactor optimizers. --augmentation_config reads JSON; a YAML path raises
+--ckpt_format orbax writes ``torch.distributed.checkpoint`` directories
+(``<output_dir>/ckpts/<step>/``, the flag named as in the JAX package);
+--resume takes such a directory, the port's ``.npz`` or one the JAX
+package wrote. --augmentation_config reads JSON; a YAML path raises
 ValueError.
 """
 
@@ -105,9 +111,11 @@ def get_parser():
                         "(--disc_start, compared against the RESTORED global "
                         "step) would let a scratch disc warm up.")
     p.add_argument("--ckpt_format", default="npz", choices=["npz", "orbax"],
-                   help="orbax: sharded checkpoints (ROADMAP.md 1.8; refused)")
+                   help="orbax: sharded collective checkpoints (torch.distributed."
+                        "checkpoint files under <output_dir>/ckpts/<step>)")
     p.add_argument("--distributed", type=int, default=0,
-                   help="multi-GPU data parallelism (ROADMAP.md 1.8; refused)")
+                   help="data parallelism over the process group of a torchrun or "
+                        "SLURM launch (NCCL; gloo with --device cpu)")
     p.add_argument("--cpu", type=int, default=0, help="the same as --device cpu")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises where there is none) or cpu")
@@ -180,17 +188,10 @@ def _config(args) -> tuple[dict, dict]:
     return card, aug_cfg
 
 
-def _refuse(args) -> None:
-    for flag, on in (("--distributed 1", args.distributed),
-                     ("--ckpt_format orbax", args.ckpt_format == "orbax"),
-                     ("--video_dataset", args.video_dataset)):
-        if on:
-            raise NotImplementedError(f"{flag}: ROADMAP.md 1.8")
-
-
-def build_trainer(args, device: torch.device):
+def build_trainer(args, device: torch.device, mesh=None):
     """(TrainerModules, TrainState, host mask embedder or None) for the
-    flags: the modules at random init from --seed on `device`."""
+    flags: the modules at random init from --seed on `device`; `mesh` (a
+    ``parallel.mesh.Mesh``) makes the step data parallel."""
     from .augmentation.augmenter import build_augmenter
     from .losses.videosealloss import VideoSealLoss
     from .models.embedder import build_embedder
@@ -237,7 +238,8 @@ def build_trainer(args, device: torch.device):
                            disc_weight=args.lambda_d, percep_weight=args.lambda_i,
                            detect_weight=args.lambda_det, decode_weight=args.lambda_dec,
                            disc_start=args.disc_start, percep_loss=args.perceptual_loss),
-        scaling_i=args.scaling_i, temperature=args.temperature, balanced=bool(args.balanced))
+        scaling_i=args.scaling_i, temperature=args.temperature, balanced=bool(args.balanced),
+        mesh=mesh)
     sched = None
     if args.scheduler:
         sched = build_lr_schedule(args.scheduler, args.iter_per_epoch,
@@ -247,118 +249,197 @@ def build_trainer(args, device: torch.device):
     return mods, state, host_masks
 
 
+def _save_ckpt(args, state, is_main: bool) -> None:
+    """The sharded checkpoint from every rank (collective), or the .npz
+    from rank 0."""
+    from .utils import checkpoint as ckpt_io
+    if args.ckpt_format == "orbax":
+        ckpt_io.save_train_state_sharded(
+            os.path.join(os.path.abspath(args.output_dir), "ckpts"), state)
+    elif is_main:
+        ckpt_io.save_train_state(os.path.join(args.output_dir, "checkpoint.npz"), state)
+
+
 def main(argv=None):
     """Train as the flags say; returns (state, logger, step_ms): the final
     TrainState, the MetricLogger, and each step's milliseconds (CUDA events
     on the card, the host clock on the CPU)."""
+    import torch.distributed as dist
+
     args = get_parser().parse_args(argv)
-    _refuse(args)
-    device = torch.device("cpu" if args.cpu else args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    _config(args)                       # refuse a YAML augmentation config first
+    want = "cpu" if args.cpu else args.device
+    if want != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("train runs on the CUDA device by default and none is available; "
                            "pass --device cpu to train on the CPU")
 
-    from .data.datasets import ImageFolder, SyntheticImages
     from .data.loader import DataLoader
+    from .parallel.mesh import make_mesh
     from .parallel.trainer import make_train_step
     from .utils import checkpoint as ckpt_io
+    from .utils.dist import average_metrics, init_distributed_mode
     from .utils.logger import MetricLogger
     from .utils.optim import ScalingSchedule
     from .utils.tensorboard import TensorboardWriter
 
+    owns_group = False
+    mesh = None
+    if args.distributed:
+        owns_group = not dist.is_initialized()
+        device = init_distributed_mode(want)
+        mesh = make_mesh()
+    else:
+        device = torch.device(want)
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    is_main = rank == 0
+    for flag, n in (("--batch_size", args.batch_size),
+                    ("--batch_size_video", args.batch_size_video if args.video_dataset else 0)):
+        if n % world:
+            raise ValueError(f"{flag} {n} (the global batch) does not split over {world} ranks")
+    local_bs, local_bs_video = args.batch_size // world, args.batch_size_video // world
+
     os.makedirs(args.output_dir, exist_ok=True)
-    mods, state, host_masks = build_trainer(args, device)
+    mods, state, host_masks = build_trainer(args, device, mesh)
     img_size = mods.cfg.img_size
     if args.resume:
         fresh = None
         if args.reset_disc:
             fresh = ({k: v.clone() for k, v in state.discriminator.state_dict().items()},
                      copy.deepcopy(state.opt_d.state_dict()))
-        ckpt_io.load_train_state(args.resume, state)
+        if args.ckpt_format == "orbax" or os.path.isdir(args.resume):
+            ckpt_io.load_train_state_sharded(args.resume, state)
+        else:
+            ckpt_io.load_train_state(args.resume, state)
         if fresh is not None:
             state.discriminator.load_state_dict(fresh[0])
             state.opt_d.load_state_dict(fresh[1])
-        print(f"resumed {args.resume} at step {state.step}", flush=True)
+        if is_main:
+            print(f"resumed {args.resume} at step {state.step}", flush=True)
     scaling_sched = (ScalingSchedule(args.scaling_w_schedule, args.scaling_w)
                      if args.scaling_w_schedule else None)
 
-    if args.synthetic or not args.image_dataset:
-        ds = SyntheticImages(4096, img_size=img_size, seed=args.seed)
-    else:
-        ds = ImageFolder(args.image_dataset, img_size=img_size)
-    loader = DataLoader(ds, args.batch_size, seed=args.seed)
+    # data: images and/or video clips, each rank loading its share of the
+    # index space; the hybrid modality picks one per epoch
+    loaders = {}
+    if args.synthetic or not (args.image_dataset or args.video_dataset):
+        from .data.datasets import SyntheticImages
+        loaders["img"] = DataLoader(SyntheticImages(4096, img_size=img_size, seed=args.seed),
+                                    local_bs, seed=args.seed, process_index=rank,
+                                    process_count=world)
+    if args.image_dataset and not args.synthetic:
+        from .data.datasets import ImageFolder
+        loaders["img"] = DataLoader(ImageFolder(args.image_dataset, img_size=img_size),
+                                    local_bs, seed=args.seed, process_index=rank,
+                                    process_count=world)
+    if args.video_dataset:
+        from .data.datasets import VideoClipDataset
+        vds = VideoClipDataset(args.video_dataset, frames_per_clip=args.frames_per_clip,
+                               img_size=img_size, seed=args.seed)
+        loaders["vid"] = DataLoader(vds, local_bs_video, seed=args.seed, process_index=rank,
+                                    process_count=world)
 
     # synthetic runs keep the whole dataset on the device as u8 and gather
-    # each batch there: a step then uploads batch_size indices, not images
+    # each global batch there (every rank draws the same indices and takes
+    # its rows): a step uploads batch_size indices, not images
     device_pool = None
     if args.synthetic and host_masks is None:
+        ds = loaders["img"].ds
         device_pool = torch.as_tensor(np.stack([
             np.clip(ds[i][0] * 255.0, 0, 255).astype(np.uint8) for i in range(len(ds))]),
             device=device)
         pool_rng = np.random.default_rng(args.seed + 7)
 
-    step_fns_by_mode = {m: make_train_step(mods, is_video=False, mode=m)
-                        for m in (("gen", "disc") if args.sleepwake else ("both",))}
+    modes = ("gen", "disc") if args.sleepwake else ("both",)
+    step_fns_by_mode = {m: {k: make_train_step(mods, is_video=k == "vid", mode=m)
+                            for k in loaders} for m in modes}
     logger = MetricLogger()
     generator = torch.Generator().manual_seed(args.seed)
+    modality_rng = np.random.default_rng(args.seed)
 
     writer = TensorboardWriter(os.path.join(args.output_dir, "tensorboard"),
-                               enabled=bool(args.tensorboard))
-    eval_fn = None
+                               enabled=bool(args.tensorboard) and is_main)
+    evals = []          # (prefix, eval_fn, held-out batch)
     if args.eval_freq:
         from .evals.intrain import make_intrain_eval
-        # representative validation masks only where localisation is trained
-        val_masks = None
-        if host_masks is not None and args.lambda_det > 0:
-            val_masks = [m[0] for m in host_masks.sample_representative_masks(img_size,
-                                                                              img_size)]
-        eval_fn = make_intrain_eval(mods, eval_augs=args.eval_augs, validation_masks=val_masks)
-        eval_imgs = np.stack([ds[i][0] for i in range(min(args.eval_samples, len(ds)))])
+        if "img" in loaders:
+            # representative validation masks only where localisation is trained
+            val_masks = None
+            if host_masks is not None and args.lambda_det > 0:
+                val_masks = [m[0] for m in host_masks.sample_representative_masks(img_size,
+                                                                                  img_size)]
+            ds_eval = loaders["img"].ds
+            evals.append(("", make_intrain_eval(mods, eval_augs=args.eval_augs,
+                                                validation_masks=val_masks),
+                          np.stack([ds_eval[i][0] for i in range(min(args.eval_samples,
+                                                                     len(ds_eval)))])))
+        if "vid" in loaders:
+            vds_eval = loaders["vid"].ds
+            n_clips = min(max(1, args.eval_samples // args.frames_per_clip), len(vds_eval))
+            evals.append(("vid_", make_intrain_eval(mods, eval_augs=args.eval_augs,
+                                                    is_video=True),
+                          np.stack([vds_eval[i][0] for i in range(n_clips)])))
 
     def run_eval(epoch, it):
         from .utils.display import create_diff_img, save_img
-        scalars, imgs_w = eval_fn(state, eval_imgs, torch.Generator().manual_seed(args.seed + 1))
-        writer.add_scalars("valid", scalars, it)
-        with open(os.path.join(args.output_dir, "eval.jsonl"), "a") as f:
-            f.write(json.dumps({"epoch": epoch, "step": it, "modality": "img", **scalars})
-                    + "\n")
-        snap = os.path.join(args.output_dir, "snapshots")
-        os.makedirs(snap, exist_ok=True)
-        wm = imgs_w.cpu().numpy()
-        for i in range(min(2, wm.shape[0])):
-            save_img(eval_imgs[i], os.path.join(snap, f"{epoch:03d}_{i}_ori.png"))
-            save_img(wm[i], os.path.join(snap, f"{epoch:03d}_{i}_wm.png"))
-            save_img(create_diff_img(eval_imgs[i], wm[i]),
-                     os.path.join(snap, f"{epoch:03d}_{i}_diff.png"))
-        print("eval @ epoch", epoch, json.dumps({k: round(v, 4) for k, v in scalars.items()}),
-              flush=True)
+        for prefix, fn, batch in evals:
+            scalars, imgs_w = fn(state, batch, torch.Generator().manual_seed(args.seed + 1))
+            scalars = {prefix + k: v for k, v in average_metrics(
+                scalars, mesh.group if mesh is not None else None).items()}
+            if not is_main:
+                continue
+            writer.add_scalars("valid", scalars, it)
+            with open(os.path.join(args.output_dir, "eval.jsonl"), "a") as f:
+                f.write(json.dumps({"epoch": epoch, "step": it,
+                                    "modality": prefix.rstrip("_") or "img", **scalars}) + "\n")
+            snap = os.path.join(args.output_dir, "snapshots")
+            os.makedirs(snap, exist_ok=True)
+            ori = batch.reshape((-1,) + batch.shape[-3:])
+            wm = imgs_w.cpu().numpy().reshape(ori.shape)
+            for i in range(min(2, wm.shape[0])):
+                save_img(ori[i], os.path.join(snap, f"{epoch:03d}_{prefix}{i}_ori.png"))
+                save_img(wm[i], os.path.join(snap, f"{epoch:03d}_{prefix}{i}_wm.png"))
+                save_img(create_diff_img(ori[i], wm[i]),
+                         os.path.join(snap, f"{epoch:03d}_{prefix}{i}_diff.png"))
+            print("eval @ epoch", epoch,
+                  json.dumps({k: round(v, 4) for k, v in scalars.items()}), flush=True)
 
-    ckpt_path = os.path.join(args.output_dir, "checkpoint.npz")
     total_steps = args.steps or args.epochs * args.iter_per_epoch
     log_path = os.path.join(args.output_dir, "log.txt")
     events = []             # (start, end) CUDA events, or host seconds, a step
     it = epoch = 0
     t_start = time.time()
     while it < total_steps:
+        if len(loaders) == 2:
+            modality = "vid" if modality_rng.random() < args.prop_img_vid else "img"
+        else:
+            modality = next(iter(loaders))
+        loader = loaders[modality]
         loader.set_epoch(epoch)
         step_fn = step_fns_by_mode[("disc" if epoch % 2 == 1 else "gen") if args.sleepwake
-                                   else "both"]
+                                   else "both"][modality]
         if scaling_sched is not None:
             state.scaling_w = float(scaling_sched(epoch))
-        batches = iter(lambda: "pool", None) if device_pool is not None else iter(loader)
+        pooled = device_pool is not None and modality == "img"
+        batches = iter(lambda: "pool", None) if pooled else iter(loader)
         for epoch_it, batch in enumerate(batches):
             # an epoch is iter_per_epoch steps (the loaders are effectively
             # infinite)
             if it >= total_steps or epoch_it >= args.iter_per_epoch:
                 break
-            if batch == "pool":
-                idx = torch.as_tensor(pool_rng.integers(0, len(device_pool), args.batch_size))
-                batch = {"imgs": device_pool[idx.to(device)].float() * (1.0 / 255.0)}
+            if pooled:
+                idx = pool_rng.integers(0, len(device_pool), args.batch_size)
+                if mesh is not None:
+                    idx = idx[mesh.shard(args.batch_size)]
+                batch = {"imgs": device_pool[torch.as_tensor(idx).to(device)].float()
+                         * (1.0 / 255.0)}
             else:
                 if host_masks is not None:
+                    flat = batch["imgs"].reshape((-1,) + batch["imgs"].shape[-3:])
                     dsm = batch.get("masks")
-                    batch["masks"] = host_masks(batch["imgs"], dsm if dsm is not None
-                                                and np.asarray(dsm).size else None)
+                    dsm = (np.asarray(dsm).reshape((-1,) + flat.shape[1:3] + (1,))
+                           if dsm is not None and np.asarray(dsm).size else None)
+                    batch["masks"] = host_masks(flat, dsm).reshape(
+                        batch["imgs"].shape[:-1] + (1,))
                 batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
             if device.type == "cuda":
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -370,28 +451,41 @@ def main(argv=None):
                 t0 = time.perf_counter()
                 _, logs = step_fn(state, batch, generator)
                 events.append(time.perf_counter() - t0)
-            # logs are read on log steps only: a read waits for the device
+            # logs (averaged over the ranks by the step) are read on log
+            # steps only: a read waits for the device
             if it % 10 == 0:
                 logger.update(**{k: float(v) for k, v in logs.items()})
-                print(logger.line(prefix=f"step {it}/{total_steps} [img]"), flush=True)
-                with open(log_path, "a") as f:
-                    f.write(json.dumps({"step": it, **logger.recent()}) + "\n")
-                writer.add_scalars("train", logger.recent(), it)
+                if is_main:
+                    print(logger.line(prefix=f"step {it}/{total_steps} [{modality}]"),
+                          flush=True)
+                    with open(log_path, "a") as f:
+                        f.write(json.dumps({"step": it, **logger.recent()}) + "\n")
+                    writer.add_scalars("train", logger.recent(), it)
             it += 1
         epoch += 1
         if epoch % args.saveckpt_freq == 0:
-            ckpt_io.save_train_state(ckpt_path, state)
-        if eval_fn is not None and epoch % args.eval_freq == 0:
+            _save_ckpt(args, state, is_main)
+        if evals and epoch % args.eval_freq == 0:
             run_eval(epoch, it)
-    ckpt_io.save_train_state(ckpt_path, state)
+    _save_ckpt(args, state, is_main)
     writer.close()
     if device.type == "cuda":
         torch.cuda.synchronize()
         step_ms = [a.elapsed_time(b) for a, b in events]
     else:
         step_ms = [s * 1e3 for s in events]
-    print(f"done: {it} steps in {time.time() - t_start:.1f}s; final {logger.line()}", flush=True)
+    if is_main:
+        print(f"done: {it} steps in {time.time() - t_start:.1f}s; final {logger.line()}",
+              flush=True)
+    if owns_group:
+        dist.destroy_process_group()
     return state, logger, step_ms
+
+
+def main_rank(rank: int, argv) -> list:
+    """`main(argv)` on one rank of ``parallel.launch.run_local``'s group
+    (two gloo ranks on the CPU without torchrun); returns its step times."""
+    return main(argv)[2]
 
 
 if __name__ == "__main__":

@@ -11,11 +11,20 @@ writes. A reference-named ``torch.save`` file (``.pth``/``.pt``) loads
 straight into the port's modules, which keep the reference's names.
 `save_train_state` / `load_train_state` write and read the port's training
 state: the modules in the same layout, the optimizers' states beside them.
+`load_train_state` also resumes a train state the JAX package wrote (its
+optax trees stored leaf by leaf beside their treedefs' text).
+`save_train_state_sharded` / `load_train_state_sharded` are the collective
+checkpoints of ``--ckpt_format orbax``: ``torch.distributed.checkpoint``
+files (not orbax's) in one numbered subdirectory per step, the last
+`keep` kept, as the JAX package lays out its orbax checkpoints.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 
 import numpy as np
 import torch
@@ -64,8 +73,13 @@ def save_npz(path: str, model, args: dict | None = None) -> None:
 
 
 def load_npz(path: str) -> tuple[dict, dict]:
-    """(embedder variables, extractor variables) as nested dicts of arrays."""
+    """(embedder variables, extractor variables) as nested dicts of arrays,
+    also from a train state the JAX package wrote."""
     with np.load(path) as data:
+        if "__treedef__embedder_params" in data.files:
+            return ({"params": _jax_field(data, "embedder_params"),
+                     "batch_stats": _jax_field(data, "embedder_stats")},
+                    {"params": _jax_field(data, "extractor_params")})
         tree = unflatten_tree({k: data[k] for k in data.files})
     return tree.get("embedder", {}), tree.get("extractor", {})
 
@@ -173,17 +187,14 @@ def save_train_state(path: str, state) -> None:
 
 
 def load_train_state(path: str, state) -> None:
-    """Restore a `save_train_state` file into `state` (a freshly created
-    TrainState of the same configuration) in place. A train state written
-    by the JAX package (its optax trees stored by leaf index) raises
-    NotImplementedError: ROADMAP.md 1.8."""
+    """Restore a `save_train_state` file, or a train state the JAX package
+    wrote, into `state` (a freshly created TrainState of the same
+    configuration and optimizers) in place."""
     from .convert import disc_from_jax, from_jax_variables
 
     with np.load(path) as data:
         if any(k.startswith("__treedef__") for k in data.files):
-            raise NotImplementedError(
-                f"{path} is a JAX-written train state (optax trees by leaf index); "
-                "resuming from it is ROADMAP.md 1.8")
+            return _load_jax_train_state(data, state)
         tree = unflatten_tree({k: data[k] for k in data.files
                                if k.startswith(("embedder", "extractor", "discriminator"))})
         emb, ext = from_jax_variables(tree["embedder"], tree["extractor"])
@@ -197,3 +208,329 @@ def load_train_state(path: str, state) -> None:
             state.sched_g.load_state_dict(json.loads(bytes(data["sched_g"]).decode()))
         state.step = int(data["step"])
         state.scaling_w = float(data["scaling_w"])
+
+
+# -- a train state the JAX package wrote ------------------------------------------------
+
+# the fields of the optax states a train state can hold, in their order
+OPTAX_FIELDS = {"ScaleByAdamState": ("count", "mu", "nu"),
+                "FactoredState": ("count", "v_row", "v_col", "v"),
+                "ScaleByScheduleState": ("count",), "TraceState": ("trace",),
+                "EmptyState": ()}
+_TOKEN = re.compile(r"\s*(PyTreeDef\(|CustomNode\(|namedtuple\[(\w+)\]|'([^']*)'|\*|None"
+                    r"|[()\[\]{},:])")
+
+
+def treedef_leaf_paths(text: str) -> list[tuple]:
+    """The path of every leaf, in flatten order, of a JAX ``PyTreeDef``'s
+    text (``repr(treedef)``): dict keys, tuple and list indices, and
+    ``"<namedtuple>.<field>"`` for a namedtuple node (fields from
+    OPTAX_FIELDS; an unknown namedtuple raises ValueError)."""
+    toks, pos = [], 0
+    while pos < len(text):
+        m = _TOKEN.match(text, pos)
+        if m is None:
+            if text[pos:].strip():
+                raise ValueError(f"cannot parse the treedef at {text[pos:pos + 40]!r}")
+            break
+        toks.append(m)
+        pos = m.end()
+    it = iter(toks)
+    paths: list[tuple] = []
+
+    def expect(tok):
+        m = next(it)
+        if m.group(1) != tok:
+            raise ValueError(f"treedef: expected {tok!r}, got {m.group(1)!r}")
+
+    def items(close, prefix, key_of):
+        """Read the children up to `close`: key_of(i, m), m a child's first
+        token, gives its key and the token its node starts at (a dict's
+        child reads its key and colon there)."""
+        i = 0
+        m = next(it)
+        while m.group(1) != close:
+            if m.group(1) == ",":
+                m = next(it)
+                continue
+            key, m = key_of(i, m)
+            node(m, prefix + (key,))
+            i += 1
+            m = next(it)
+
+    def node(m, prefix):
+        t = m.group(1)
+        if t == "*":
+            paths.append(prefix)
+        elif t == "None":
+            pass
+        elif t == "(":
+            items(")", prefix, lambda i, m: (i, m))
+        elif t == "[":
+            items("]", prefix, lambda i, m: (i, m))
+        elif t == "{":
+            def dict_key(i, m):
+                if m.group(3) is None:
+                    raise ValueError(f"treedef: dict key expected, got {m.group(1)!r}")
+                expect(":")
+                return m.group(3), next(it)
+            items("}", prefix, dict_key)
+        elif t == "CustomNode(":
+            name = next(it).group(2)
+            if name not in OPTAX_FIELDS:
+                raise ValueError(f"treedef: namedtuple {name} is not an optax state the "
+                                 f"port reads ({sorted(OPTAX_FIELDS)})")
+            expect(",")
+            expect("[")
+            fields = OPTAX_FIELDS[name]
+            items("]", prefix, lambda i, m: (f"{name}.{fields[i]}", m))
+            expect(")")
+        else:
+            raise ValueError(f"treedef: unexpected {t!r}")
+
+    expect("PyTreeDef(")
+    node(next(it), ())
+    return paths
+
+
+def _jax_field(data, field: str) -> dict:
+    """A field of a JAX-written train state as a nested dict keyed by path
+    element (dict keys, indices, namedtuple fields)."""
+    paths = treedef_leaf_paths(bytes(data[f"__treedef__{field}"]).decode())
+    return _nest_paths({path: data[f"{field}{SEP}{i}"] for i, path in enumerate(paths)})
+
+
+def _flat_paths(tree, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _nest_paths(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def _jax_opt_into(opt: torch.optim.Optimizer, chain: dict, jax_params: dict, to_torch,
+                  names: list[str], sched=None) -> None:
+    """Fill `opt` (whose parameters, in order, carry `names`) from an optax
+    chain state over `jax_params`: `to_torch` maps a tree shaped like
+    jax_params to the port's tensors by those names. Adam's (and lamb's)
+    count, mu and nu become each parameter's step, exp_avg and exp_avg_sq;
+    SGD's trace its momentum buffer; adafactor's moments go through
+    `_jax_adafactor`; a schedule's count becomes `sched`'s position."""
+    from .optim import Adafactor, Lamb
+
+    slots = {k: v for part in chain.values() for k, v in part.items()}
+    kinds = {k.split(".")[0] for k in slots}
+    unknown = kinds - {"ScaleByAdamState", "TraceState", "FactoredState",
+                       "ScaleByScheduleState"}
+    if unknown:
+        raise ValueError(f"optax states {sorted(unknown)} have no counterpart in the port")
+    want = {"ScaleByAdamState": (torch.optim.Adam, torch.optim.AdamW, Lamb),
+            "TraceState": (torch.optim.SGD,), "FactoredState": (Adafactor,)}
+    for kind, types in want.items():
+        if kind in kinds and not isinstance(opt, types):
+            raise ValueError(f"a JAX {kind} cannot resume {type(opt).__name__}")
+    if not kinds & set(want) and (opt.state or not isinstance(opt, torch.optim.SGD)
+                                  or opt.defaults.get("momentum")):
+        raise ValueError(f"the JAX optimizer keeps no state; {type(opt).__name__} needs one")
+    state: dict = {}
+    if "ScaleByAdamState" in kinds:
+        step = float(slots["ScaleByAdamState.count"])
+        mu, nu = to_torch(slots["ScaleByAdamState.mu"]), to_torch(slots["ScaleByAdamState.nu"])
+        state = {i: {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                 for i, n in enumerate(names)}
+    elif "TraceState" in kinds:
+        trace = to_torch(slots["TraceState.trace"])
+        state = {i: {"momentum_buffer": trace[n]} for i, n in enumerate(names)}
+    elif "FactoredState" in kinds:
+        state = _jax_adafactor(slots, jax_params, to_torch, names,
+                               opt.defaults["min_dim_size_to_factor"])
+    dev = opt.param_groups[0]["params"][0].device
+    sd = opt.state_dict()
+    sd["state"] = {i: {k: v.to(dev) if k != "step" else v for k, v in st.items()}
+                   for i, st in state.items()}
+    opt.load_state_dict(sd)
+    if "ScaleByScheduleState" in kinds:
+        if sched is None:
+            raise ValueError("the JAX state has an lr schedule and the port's state none")
+        sched.last_epoch = int(slots["ScaleByScheduleState.count"]) - 1
+        sched.step()
+
+
+def _jax_adafactor(slots, jax_params, to_torch, names, min_dim) -> dict:
+    """Adafactor's per-parameter state from optax's FactoredState. A
+    factored moment (v_row, the mean over JAX axis d0; v_col, over d1) is
+    broadcast back to the parameter's JAX shape and converted with it; the
+    torch axis that d0 (d1) became is found by converting its coordinates,
+    and the moment goes, narrowed on it, to whichever of the port's two
+    moments reduces that axis."""
+    from .optim import factored_dims
+    count = float(slots["FactoredState.count"])
+    shapes = {k: np.shape(v) for k, v in _flat_paths(jax_params).items()}
+    rows = _flat_paths(slots["FactoredState.v_row"])
+    cols = _flat_paths(slots["FactoredState.v_col"])
+    full = {"v_row": {}, "v_col": {}, "d0": {}, "d1": {}}
+    for k, shape in shapes.items():
+        dims = factored_dims(shape, min_dim)
+        if dims is None:
+            for t in full.values():
+                t[k] = np.zeros(shape, np.float32)
+            continue
+        d1, d0 = dims
+        full["v_row"][k] = np.broadcast_to(np.expand_dims(rows[k], d0), shape)
+        full["v_col"][k] = np.broadcast_to(np.expand_dims(cols[k], d1), shape)
+        for tag, d in (("d0", d0), ("d1", d1)):
+            full[tag][k] = np.broadcast_to(np.arange(shape[d], dtype=np.float32).reshape(
+                [-1 if i == d else 1 for i in range(len(shape))]), shape)
+    whole = _flat_paths(slots["FactoredState.v"])     # (1,) where factored
+    full["v"] = {k: whole[k] if factored_dims(shape, min_dim) is None
+                 else np.zeros(shape, np.float32) for k, shape in shapes.items()}
+    conv = {t: to_torch(_nest_paths(tree)) for t, tree in full.items()}
+    state = {}
+    for i, n in enumerate(names):
+        shape = tuple(conv["d0"][n].shape)
+        dims = factored_dims(shape, min_dim)
+        if dims is None:
+            state[i] = {"step": torch.tensor(count), "v": conv["v"][n]}
+            continue
+        st = {"step": torch.tensor(count)}
+        for src, tag in (("v_row", "d0"), ("v_col", "d1")):
+            axis = _axis_of(conv[tag][n])
+            slot = {dims[1]: "v_row", dims[0]: "v_col"}.get(axis)
+            if slot is None:
+                raise ValueError(f"{n}: JAX factors an axis the port does not ({dims})")
+            st[slot] = conv[src][n].narrow(axis, 0, 1).contiguous()
+        state[i] = st
+    return state
+
+
+def _axis_of(coords: torch.Tensor) -> int:
+    """The one axis along which a converted coordinate array varies."""
+    axes = [a for a in range(coords.dim()) if coords.shape[a] > 1
+            and bool((coords.diff(dim=a) != 0).any())]
+    if len(axes) != 1:
+        raise ValueError(f"cannot place a factored axis: it varies along {axes}")
+    return axes[0]
+
+
+def _load_jax_train_state(data, state) -> None:
+    from .convert import disc_from_jax, from_jax_variables
+
+    e_params, x_params = _jax_field(data, "embedder_params"), _jax_field(data, "extractor_params")
+    d_params = _jax_field(data, "disc_params")
+    emb, ext = from_jax_variables({"params": e_params,
+                                   "batch_stats": _jax_field(data, "embedder_stats")},
+                                  {"params": x_params})
+    state.embedder.load_state_dict(_check_and_cast(emb, state.embedder, "embedder"))
+    state.extractor.load_state_dict(_check_and_cast(ext, state.extractor, "extractor"))
+    state.discriminator.load_state_dict(_check_and_cast(
+        disc_from_jax({"params": d_params}), state.discriminator, "discriminator"))
+
+    def gen_to_torch(tree):
+        e, x = from_jax_variables({"params": tree["embedder"]}, {"params": tree["extractor"]})
+        return {**{f"embedder.{k}": t for k, t in e.items()},
+                **{f"extractor.{k}": t for k, t in x.items()}}
+
+    gen_names = ([f"embedder.{n}" for n, _ in state.embedder.named_parameters()]
+                 + [f"extractor.{n}" for n, _ in state.extractor.named_parameters()])
+    _jax_opt_into(state.opt_g, _jax_field(data, "opt_state_g"),
+                  {"embedder": e_params, "extractor": x_params}, gen_to_torch, gen_names,
+                  state.sched_g)
+    _jax_opt_into(state.opt_d, _jax_field(data, "opt_state_d"), d_params,
+                  lambda tree: disc_from_jax({"params": tree}),
+                  [n for n, _ in state.discriminator.named_parameters()])
+    state.step = int(data["step"])
+    state.scaling_w = float(data["scaling_w"])
+
+
+# -- sharded, collective checkpoints (--ckpt_format orbax) -----------------------------
+
+def _sharded_state_dict(state) -> dict:
+    sd = {}
+    for name in ("embedder", "extractor", "discriminator"):
+        sd.update({f"{name}.{k}": v for k, v in getattr(state, name).state_dict().items()})
+    for name in ("opt_g", "opt_d"):
+        osd = getattr(state, name).state_dict()
+        sd[f"{name}.param_groups"] = json.dumps(osd["param_groups"])
+        for idx, st in osd["state"].items():
+            sd.update({f"{name}.state.{idx}.{k}": v for k, v in st.items()})
+    if state.sched_g is not None:
+        sd["sched_g"] = json.dumps(state.sched_g.state_dict())
+    sd["step"] = torch.tensor(state.step, dtype=torch.int64)
+    sd["scaling_w"] = torch.tensor(state.scaling_w, dtype=torch.float64)
+    return sd
+
+
+def checkpoint_steps(ckpt_dir: str) -> list[int]:
+    """The steps of the complete checkpoints under ckpt_dir, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d) for d in os.listdir(ckpt_dir)
+                  if d.isdigit() and os.path.exists(os.path.join(ckpt_dir, d, ".metadata")))
+
+
+def save_train_state_sharded(ckpt_dir: str, state, step: int | None = None,
+                             keep: int = 3) -> str:
+    """Write `state` as ``ckpt_dir/<step>/`` with
+    ``torch.distributed.checkpoint``: call from every rank (collective;
+    each rank writes its share of the tensors, replicated ones once). The
+    newest `keep` steps stay. Returns the step's directory."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    step = int(state.step if step is None else step)
+    path = os.path.join(ckpt_dir, str(step))
+    dcp.save(_sharded_state_dict(state), checkpoint_id=path)
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0:
+        for old in checkpoint_steps(ckpt_dir)[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, str(old)), ignore_errors=True)
+    return path
+
+
+def load_train_state_sharded(ckpt_dir: str, state, step: int | None = None) -> int:
+    """Restore ``ckpt_dir/<step>/`` (the latest step by default) into
+    `state` (a freshly created TrainState of the same configuration) in
+    place, on every rank. Returns the step."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    steps = checkpoint_steps(ckpt_dir)
+    if step is None:
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        step = steps[-1]
+    path = os.path.join(ckpt_dir, str(step))
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    target = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+              if isinstance(m, TensorStorageMetadata) else "" for k, m in meta.items()}
+    dcp.load(target, checkpoint_id=path)
+    for name in ("embedder", "extractor", "discriminator"):
+        mod = getattr(state, name)
+        mod.load_state_dict(_check_and_cast(
+            {k[len(name) + 1:]: v for k, v in target.items() if k.startswith(name + ".")},
+            mod, name))
+    for name in ("opt_g", "opt_d"):
+        opt_state: dict = {}
+        head = f"{name}.state."
+        for k, v in target.items():
+            if k.startswith(head):
+                idx, leaf = k[len(head):].split(".", 1)
+                opt_state.setdefault(int(idx), {})[leaf] = v
+        getattr(state, name).load_state_dict(
+            {"state": opt_state, "param_groups": json.loads(target[f"{name}.param_groups"])})
+    if state.sched_g is not None:
+        state.sched_g.load_state_dict(json.loads(target["sched_g"]))
+    state.step = int(target["step"])
+    state.scaling_w = float(target["scaling_w"])
+    return int(step)

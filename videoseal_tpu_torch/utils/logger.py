@@ -1,7 +1,7 @@
 """Metric logging, counterpart of ``videoseal_tpu/utils/logger.py``
 (the reference's MetricLogger and SmoothedValue): windowed medians and
-global averages per metric. One process: no cross-host sync (multi-GPU
-training is ROADMAP.md 1.8)."""
+global averages per metric; `sync` sums the global averages' totals and
+counts over the process group."""
 
 from __future__ import annotations
 
@@ -50,3 +50,20 @@ class MetricLogger:
             m = self.meters[k]
             parts.append(f"{k}: {m.median:.4f} ({m.global_avg:.4f})")
         return self.delimiter.join(parts)
+
+    def sync(self, group=None):
+        """Sum every meter's total and count over the process group (every
+        rank calls it at the same point, with the same meters); a single
+        process is left as it is."""
+        import torch
+        import torch.distributed as dist
+
+        from .dist import comm_device, is_dist_avail_and_initialized
+        if not is_dist_avail_and_initialized():
+            return
+        keys = sorted(self.meters)
+        vals = torch.tensor([[self.meters[k].total, self.meters[k].count] for k in keys],
+                            dtype=torch.float64, device=comm_device(group))
+        dist.all_reduce(vals, group=group)
+        for k, (total, count) in zip(keys, vals.tolist()):
+            self.meters[k].total, self.meters[k].count = total, int(count)
