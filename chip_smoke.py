@@ -138,6 +138,27 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      K2 18 a row) and tools.eval_checkpoint on the video run's checkpoint
      (one image: K4 1, K2 18 a row).
      Logs and eval rows in chiprun_out/dist/.
+ 19. the presets the cards do not use, at full width in bf16 with
+     videoseal_1.0's settings (256 bits, 256 px, step 4, chunk 32,
+     jnd_1_1), random init from seed 0, each model written with save_npz
+     and loaded back by path (vt.load): (a) unet_small2_yuv_quant_2p1d with
+     convnext_tiny_temporal, (b) videoseal_1.0's embedder with
+     convnext_tiny_pw. Each: NHWC embed, detect and extract_message of 128
+     u8 1080p frames as a video (K4 1, K2 144), (a) embed_detect_planar in
+     the scored mode (K1 1, K2 72); each launch's first call per shape held
+     against its plain version on the inputs the path gave it; detect of 40
+     frames (the last chunk of 8: with (a) padded with 24 copies of frame 0
+     as the JAX package pads it, its logits equal to the extractor's on that
+     batch; K2 36); the grouped route over one chunk (K3 5, K2 4) equal to the
+     single route, its launches held too; card against CPU on 8 frames
+     (logits or pixelwise maps elementwise, the bit decisions, (a)'s embed);
+     timed. Then sam_small_pw and the hidden embedder and extractor detect
+     or embed 8 frames (no kernel: every count 0), and train.main
+     --synthetic 1 with convnext_tiny_pw and unet_small2_yuv_quant_2p1d (2
+     steps at batch 16) and one video step of the same modules on a 16-frame
+     clip, every loss finite. Phase 19 alone: `python3 -c "import torch,
+     chip_smoke as cs; smi, _ = cs.phase_device(); cs.phase_build();
+     cs.phase_presets(torch.device('cuda', 0), smi)"`.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -265,6 +286,12 @@ DIST_LOG_RTOL, DIST_BN_RTOL = 1e-5, 1e-5
 # lamb and adafactor on the card from the CPU's gradients: per-tensor norms
 # and roots in another order, ~1e-7 of parameters ~1 (measured 2.4e-7)
 OPT_ALONE_ATOL = 1e-6
+# phase 19: the padded last chunk's detect (a chunk of 32 and 8 frames), and
+# the presets' card-vs-CPU tolerance: both bf16, the CPU's convolutions and
+# matmuls summing in another order, chunkyseal's bound; the pixelwise maps,
+# compared elementwise, pass the decoder's three upsample blocks (bf16 convs
+# and LayerNorms over 192, 96 and 48 channels) after the 18 blocks
+F_PRESET_PAD, PRESET_LOGIT_ATOL = 40, 5e-2
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -2575,6 +2602,328 @@ def phase_dist(dev, smi: str, phase17: dict) -> dict:
             "k2_video_max_abs_err": k2_err, "optimizers": opts}
 
 
+class _Capture:
+    """Wraps the kernel wrappers where the pipeline calls them (K1 and K4 in
+    models/videoseal.py, K2 and K3 in kernels/convnext_fused.py) for one run
+    and keeps each wrapper's first call per input shape, so that its
+    kernel can be held against its plain version on the inputs the path
+    gave it, after the run's counts are read."""
+
+    def __init__(self):
+        from videoseal_tpu_torch.kernels import convnext_fused as cf
+        from videoseal_tpu_torch.models import videoseal as mv
+        self.sites = [(cf, "convnext_block_fused", "K2"), (cf, "convnext_blocks_fused", "K3"),
+                      (mv, "fused_jnd_blend_up", "K4"), (mv, "fused_jnd_blend_planar", "K1")]
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self.sites]
+        for (mod, name, k), (_, _, fn) in zip(self.sites, self.saved):
+            def wrap(*args, fn=fn, k=k, **kw):
+                key = (k, tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)))
+                self.calls.setdefault(key, (fn, args, kw))
+                return fn(*args, **kw)
+            setattr(mod, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def hold_captured(tag: str, calls: dict) -> dict:
+    """Each captured launch against its plain version: K2 and K3 at K2's
+    tolerance, K1's and K4's u8 frames at K1's rule."""
+    from videoseal_tpu_torch.kernels import convnext_block as cb
+    from videoseal_tpu_torch.kernels import fused_blend as fb
+    from videoseal_tpu_torch.kernels import fused_planar as fp
+    plain = {"K2": cb.convnext_block_plain, "K3": cb.convnext_blocks_plain,
+             "K4": fb.fused_jnd_blend_up_plain, "K1": fp.fused_jnd_blend_planar_plain}
+    worst = {}
+    for (k, shapes), (fn, args, kw) in sorted(calls.items(), key=lambda c: str(c[0])):
+        a, b = fn(*args, **kw), plain[k](*args, **kw)
+        torch.cuda.synchronize()
+        if k == "K1" and isinstance(a, tuple):
+            (a, da), (b, db) = a, b
+            det = float((da - db).abs().max())
+            if det > K1_DET_ATOL:
+                raise AssertionError(f"{tag}: K1's detect output at {shapes} disagrees "
+                                     f"with its plain version ({det:.3e})")
+        if a.dtype == torch.uint8:
+            d = (a.int() - b.int()).abs()
+            err, share = float(d.max()), float((d > 0).float().mean())
+            log(f"[{tag}] {k} at {shapes}: u8 max diff {int(err)}, share differing {share:.2e}")
+            if err > K1_U8_MAX or share > K1_U8_SHARE:
+                raise AssertionError(f"{tag}: {k} at {shapes} disagrees with its plain version")
+        else:
+            a, b = a.float(), b.float()
+            e = (a - b).abs()
+            err = float(e.max())
+            log(f"[{tag}] {k} at {shapes}: max abs err {err:.3e}")
+            if not bool(torch.isfinite(a).all()) or bool((e > K2_ATOL + K2_RTOL * b.abs()).any()):
+                raise AssertionError(f"{tag}: {k} at {shapes} disagrees with its plain version")
+        worst[k] = max(worst.get(k, 0.0), err)
+    return worst
+
+
+def _preset_card(embedder: str, extractor: str) -> tuple[dict, dict]:
+    """(card, training args): videoseal_1.0's settings with the two presets."""
+    import copy
+    from videoseal_tpu_torch import presets
+    from videoseal_tpu_torch.utils.cfg import load_card
+    card = load_card("videoseal_1.0")
+    args = dict(card["args"], embedder_model=embedder, extractor_model=extractor)
+    card["embedder"] = {"model": embedder, "params": copy.deepcopy(presets.EMBEDDER[embedder])}
+    card["extractor"] = {"model": extractor,
+                         "params": copy.deepcopy(presets.EXTRACTOR[extractor])}
+    return card, args
+
+
+def _load_through_npz(dev, tmp: str, embedder: str, extractor: str):
+    """A model of the presets at random init (seed 0), written with
+    save_npz and loaded back by path on the card, its weights the same."""
+    import videoseal_tpu_torch as vt
+    card, args = _preset_card(embedder, extractor)
+    src = vt.VideoSeal.from_card(card, device=dev, seed=0)
+    path = os.path.join(tmp, f"{embedder}-{extractor}.npz")
+    vt.save_npz(path, src, args=args)
+    model = vt.load(path, device=dev)
+    same = all(torch.equal(model.state_dict()[k], v) for k, v in src.state_dict().items())
+    if not same or model.card["extractor"]["model"] != extractor:
+        raise AssertionError(f"{path} did not load back as the model it holds")
+    del src
+    return model.with_dtype("bfloat16"), path
+
+
+def _card_vs_cpu(tag: str, model, path: str, frames: torch.Tensor, embed: bool) -> dict:
+    """The card against the CPU on 8 frames, both bf16: the logits (or
+    pixelwise maps, elementwise) within PRESET_LOGIT_ATOL, the bit decisions
+    equal but where the CPU logit lies within it of 0; with `embed` the u8
+    embed output as the slice holds it."""
+    import videoseal_tpu_torch as vt
+    cpu = vt.load(path, device="cpu").with_dtype("bfloat16")
+    msgs = model.get_random_msg(1)
+    rec = {}
+    if embed:
+        g = model.embed(frames, msgs=msgs, is_video=True)["imgs_w"]
+        c = cpu.embed(frames.cpu(), msgs=msgs.cpu(), is_video=True)["imgs_w"]
+        d = (g.cpu().int() - c.int()).abs()
+        rec["u8_max"], rec["u8_share"] = int(d.max()), float((d > 0).float().mean())
+        log(f"[{tag}] embed, 8 frames, card vs CPU: u8 max diff {rec['u8_max']}, share "
+            f"differing {rec['u8_share']:.2e}")
+        if rec["u8_max"] > SLICE_U8_MAX or rec["u8_share"] > SLICE_U8_SHARE:
+            raise AssertionError(f"{tag}: card and CPU disagree on the embed")
+    gp = model.detect(frames)["preds"].cpu()
+    cp = cpu.detect(frames.cpu())["preds"]
+    diff = float((gp - cp).abs().max())
+    sure = cp[..., 1:].abs() > PRESET_LOGIT_ATOL
+    flips = int(((gp[..., 1:] > 0) != (cp[..., 1:] > 0))[sure].sum())
+    rec.update(logit_max=diff, flips=flips, shape=list(gp.shape))
+    log(f"[{tag}] detect, 8 frames, card vs CPU: preds {tuple(gp.shape)}, max abs diff "
+        f"{diff:.3e} (tolerance {PRESET_LOGIT_ATOL}), bit decisions differing where the CPU "
+        f"logit is beyond it: {flips}")
+    if diff > PRESET_LOGIT_ATOL or flips:
+        raise AssertionError(f"{tag}: card and CPU disagree on detect")
+    del cpu
+    return rec
+
+
+def phase_presets(dev, smi: str) -> dict:
+    """The presets the cards do not use, at full width in bf16 with
+    videoseal_1.0's settings, each built through a .npz loaded by path:
+    (a) unet_small2_yuv_quant_2p1d with convnext_tiny_temporal and (b)
+    videoseal_1.0's embedder with convnext_tiny_pw, NHWC and (a) planar
+    over 128 u8 1080p frames, 40 frames (the padded last chunk), the
+    grouped route, card against CPU, each kernel launch against its plain
+    version; train.main with the pixelwise extractor and the 2p1d embedder;
+    sam_small_pw and the hidden presets, which run no kernel."""
+    import shutil
+    import tempfile
+
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch.kernels.convnext_fused import block_groups, convnext_apply_fused
+    from videoseal_tpu_torch.models.videoseal import _chunked_apply
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_presets_")
+    rec = {"launches": {k: 0 for k in kernel_wrappers()}}
+
+    def add(got):
+        rec["launches"] = {k: rec["launches"][k] + got[k] for k in got}
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    frames = torch.randint(0, 256, (F_SLICE, H, W, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    chunks = math.ceil(F_SLICE / 32)
+    try:
+        for tag, emb, ext in (("temporal", "unet_small2_yuv_quant_2p1d", "convnext_tiny_temporal"),
+                              ("pixelwise", "unet_small2_yuv_quant", "convnext_tiny_pw")):
+            model, path = _load_through_npz(dev, tmp, emb, ext)
+            blocks = sum(len(st) for st in model.extractor.convnext.stages)   # 18
+            msgs = model.get_random_msg(1)
+            pw = model.extractor_spec.pixelwise
+            with _Capture() as cap:
+                reset_counts()
+                vid = model.embed(frames, msgs=msgs, is_video=True)
+                preds = model.detect(vid["imgs_w"])["preds"]
+                bits = model.extract_message(vid["imgs_w"])
+                add(check_counts(f"presets {tag} nhwc", {"K4": 1, "K2": 2 * blocks * chunks}))
+                if tag == "temporal":
+                    planar = vt.pack_planar(frames)
+                    reset_counts()
+                    pout = model.embed_detect_planar(planar, H, W, msgs=msgs,
+                                                     lowres_attenuation=True, fused_detect=True)
+                    add(check_counts(f"presets {tag} planar", {"K1": 1, "K2": blocks * chunks}))
+            s = model.cfg.img_size
+            want = (F_SLICE, s // 2, s // 2, 257) if pw else (F_SLICE, 257)
+            wm = vid["imgs_w"]
+            log(f"[presets] {tag}: imgs_w {tuple(wm.shape)} {wm.dtype}, preds "
+                f"{tuple(preds.shape)}, bits {tuple(bits.shape)}")
+            if (tuple(wm.shape) != (F_SLICE, H, W, 3) or wm.dtype != torch.uint8
+                    or torch.equal(wm, frames) or tuple(preds.shape) != want
+                    or not bool(torch.isfinite(preds).all()) or tuple(bits.shape) != (1, 256)):
+                raise AssertionError(f"presets {tag}: output of the wrong shape, not finite or "
+                                     "unchanged")
+            if tag == "temporal" and (tuple(pout["preds"].shape) != (F_SLICE, 257)
+                                      or not bool(torch.isfinite(pout["preds"]).all())):
+                raise AssertionError("presets temporal: planar preds wrong or not finite")
+            # the last chunk of 40 frames: 8 frames, which a model that mixes
+            # frames runs with 24 copies of frame 0 (JAX's pad) and a 2D model
+            # alone, so they equal a direct call on that batch
+            f40 = wm[:F_PRESET_PAD]
+            reset_counts()
+            p40 = model.detect(f40)["preds"]
+            add(check_counts(f"presets {tag} F={F_PRESET_PAD}", {"K2": 2 * blocks}))
+            from videoseal_tpu_torch.modules.common import mixes_frames
+            from videoseal_tpu_torch.ops.resize import resize_bilinear
+            x40 = resize_bilinear(f40, s, s, precision=model.cfg.resize_precision) * (1.0 / 255.0)
+            padded = torch.cat([x40[32:], x40[:1].expand(24, -1, -1, -1)])
+            with torch.no_grad():
+                direct = {n: model.extractor(b.to(torch.bfloat16)).float()[:8]
+                          for n, b in (("padded", padded), ("alone", x40[32:]))}
+            pad = mixes_frames(model.extractor)
+            same = torch.equal(direct["padded" if pad else "alone"], p40[32:])
+            r = {"worst": hold_captured(f"presets {tag}", cap.calls), "mixes_frames": pad,
+                 "pad_moves": float((direct["padded"] - direct["alone"]).abs().max())}
+            log(f"[presets] {tag}: F={F_PRESET_PAD}, frames mixed {pad}: the last 8 frames' "
+                f"logits equal the extractor's on them {'padded with frame 0' if pad else 'alone'}"
+                f": {same}; the pad moves them by {r['pad_moves']:.3e}")
+            if not same:
+                raise AssertionError(f"presets {tag}: the last chunk is not run as JAX runs it")
+            # the grouped route over one chunk: K3 5, K2 16, equal to the single route
+            x32 = x40[:32].to(torch.bfloat16)
+            ext_mod = model.extractor
+            groups = [k for st in ext_mod.convnext.stages for k in block_groups(len(st), 4)]
+            with _Capture() as gcap:
+                reset_counts()
+                with torch.no_grad():
+                    grouped = ext_mod.pixel_decoder(convnext_apply_fused(
+                        ext_mod.convnext, x32 * 2 - 1, max_block_group=4)).float()
+                add(check_counts(f"presets {tag} grouped", {"K3": sum(k > 1 for k in groups),
+                                                          "K2": groups.count(1)}))
+            with torch.no_grad():
+                single = ext_mod(x32).float()
+            r["grouped_identical"] = torch.equal(grouped, single)
+            log(f"[presets] {tag}: grouped route identical to the single route: "
+                f"{r['grouped_identical']}")
+            if not r["grouped_identical"]:
+                raise AssertionError(f"presets {tag}: grouped and single routes differ")
+            gw = hold_captured(f"presets {tag} grouped", gcap.calls)
+            r["worst"].update({k: max(v, r["worst"].get(k, 0.0)) for k, v in gw.items()})
+            r["cpu_vs_card"] = _card_vs_cpu(f"presets {tag}", model, path, wm[:8],
+                                            embed=tag == "temporal")
+            r["nhwc_ms"] = cuda_ms(lambda: model.detect(
+                model.embed(frames, msgs=msgs, is_video=True)["imgs_w"]))
+            r["detect40_ms"] = cuda_ms(lambda: model.detect(f40))
+            line = (f"[presets] {tag}: NHWC embed+detect of {F_SLICE} u8 1080p frames "
+                    f"{r['nhwc_ms']:.2f} ms, detect of {F_PRESET_PAD} {r['detect40_ms']:.2f} ms")
+            if tag == "temporal":
+                r["planar_ms"] = cuda_ms(lambda: model.embed_detect_planar(
+                    planar, H, W, msgs=msgs, lowres_attenuation=True, fused_detect=True))
+                line += f", planar scored {r['planar_ms']:.2f} ms"
+                del planar, pout
+            log(f"{line} ({smi})")
+            rec[tag] = r
+            del model, vid, preds, wm, f40, x40
+            torch.cuda.empty_cache()
+
+        # models without a kernel on their path: every count stays 0
+        for tag, emb, ext in (("sam_small_pw", "unet_small2_yuv_quant", "sam_small_pw"),
+                              ("hidden", "hidden", "hidden")):
+            model, _ = _load_through_npz(dev, tmp, emb, ext)
+            eight = frames[:8]
+            reset_counts()
+            if tag == "hidden":
+                out = model.embed(eight, is_video=False)["imgs_w"]
+                preds = model.detect(out)["preds"]
+                want = (8, 257)
+            else:
+                out = eight
+                preds = model.detect(eight)["preds"]
+                want = (8, model.cfg.img_size, model.cfg.img_size, 257)
+            add(check_counts(f"presets {tag}", {}))
+            ms = cuda_ms(lambda: model.detect(out))
+            log(f"[presets] {tag}: preds {tuple(preds.shape)}, detect of 8 frames {ms:.2f} ms "
+                f"({smi})")
+            if (tuple(preds.shape) != want or not bool(torch.isfinite(preds).all())
+                    or (tag == "hidden" and (out.dtype != torch.uint8
+                                             or torch.equal(out, eight)))):
+                raise AssertionError(f"presets {tag}: wrong shape, not finite or unchanged")
+            rec[tag] = {"detect_ms": ms, "preds": list(preds.shape)}
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del frames
+    torch.cuda.empty_cache()
+    rec["train"] = _presets_train(dev, smi)
+    add(rec["train"].pop("launches"))
+    return rec
+
+
+def _presets_train(dev, smi: str) -> dict:
+    """train.main --synthetic 1 with the pixelwise extractor and the 2p1d
+    embedder (2 image steps at batch 16; the pixelwise loss holds the mask's
+    share of each prediction pixel), then one video step (a 16-frame clip)
+    of the same modules: every loss finite."""
+    import shutil
+    import tempfile
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    out = tempfile.mkdtemp(prefix="chip_smoke_presets_train_")
+    flags = ["--extractor_model", "convnext_tiny_pw",
+             "--embedder_model", "unet_small2_yuv_quant_2p1d", "--batch_size", "16"]
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, logger, step_ms = train.main(flags + ["--synthetic", "1", "--steps", "2",
+                                                     "--eval_freq", "0", "--tensorboard", "0",
+                                                     "--output_dir", out])
+        wall = time.perf_counter() - t0
+        launches = check_counts("presets train", {})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    logs = {k: m.global_avg for k, m in logger.meters.items()}
+    mods, st, _ = train.build_trainer(train.get_parser().parse_args(flags), dev)
+    clip = torch.rand((1, F_TRAIN_CLIP, 256, 256, 3), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+    _, vlogs = make_train_step(mods, is_video=True)(st, {"imgs": clip},
+                                                    torch.Generator(device=dev).manual_seed(6))
+    vlogs = {k: float(v) for k, v in vlogs.items()}
+    log(f"[presets] train.main, convnext_tiny_pw + unet_small2_yuv_quant_2p1d: 2 steps at "
+        f"batch 16 in {wall:.1f} s (the synthetic pool included), steps {step_ms} ms; "
+        f"loss_decode {logs.get('loss_decode', math.nan):.4f}, bit_acc "
+        f"{logs.get('bit_acc', math.nan):.4f}; video step on a {F_TRAIN_CLIP}-frame clip: "
+        f"total_loss {vlogs.get('total_loss', math.nan):.4f} ({smi})")
+    if (state.step != 2 or "loss_decode" not in logs
+            or not all(math.isfinite(v) for v in [*logs.values(), *vlogs.values()])):
+        raise AssertionError("presets train: a loss is not finite or a step did not run")
+    del mods, st, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "wall_s": wall, "logs": logs,
+            "video_logs": vlogs}
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -2679,13 +3028,14 @@ def main() -> int:
     rec["attacks"] = phase_attacks(dev, smi)
     rec["train"] = phase_train(dev, smi)
     rec["dist"] = phase_dist(dev, smi, rec["train"])
+    rec["presets"] = phase_presets(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
-                                            "attacks", "train", "dist")]
+                                            "attacks", "train", "dist", "presets")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

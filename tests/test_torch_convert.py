@@ -122,10 +122,15 @@ class TestCards:
 
     def test_unported_cards_raise(self):
         """Every card builds now (tests/test_torch_cards.py holds them against
-        the JAX package); an extractor still unported raises, pointing at
-        the roadmap."""
-        for model in ("hidden", "dvmark"):
+        the JAX package); an extractor still unported (DVMark, DINO) raises,
+        pointing at the roadmap. The hidden extractor is ported (its preset
+        builds; tests/test_torch_presets.py holds it against JAX's)."""
+        from videoseal_tpu_torch import presets
+        for model in ("dino2s_indices", "dvmark"):
             card = copy.deepcopy(load_card("videoseal_0.0"))
             card["extractor"] = {"model": model, "params": {}}
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md 1.9"):
                 VideoSeal.from_card(card, device="cpu")
+        card = copy.deepcopy(load_card("videoseal_0.0"))
+        card["extractor"] = {"model": "hidden", "params": presets.EXTRACTOR["hidden"]}
+        assert VideoSeal.from_card(card, device="cpu").extractor_spec.nbits == 96

@@ -2,7 +2,8 @@
 or pandas: the package must import and run its planar and NHWC paths,
 loading by path, streaming, the metrics, the attack simulator, the evals,
 the losses and a few training steps (with lamb, adafactor and the sharded
-checkpoint; and the training entry point's --help), and import every
+checkpoint; and the training entry point's --help), the temporal, pixelwise
+and HiDDeN models and the inflation script, and import every
 other module, without them (and without cv2, which the streaming path and the exact
 codecs import only where they need it)."""
 
@@ -128,6 +129,28 @@ state, _, _ = train.main(["--device", "cpu", "--tiny", "1", "--synthetic", "1", 
                           "--optimizer", "adafactor,lr=1e-3", "--optimizer_d", "lamb,lr=1e-3",
                           "--ckpt_format", "orbax", "--output_dir", os.path.join(tmp, "t2")])
 assert checkpoint.checkpoint_steps(os.path.join(tmp, "t2", "ckpts")) == [1]
+
+# the preset variants: a 2p1d embedder with a temporal, pixelwise ConvNeXt,
+# HiDDeN, and the inflation script
+from videoseal_tpu_torch.modules import hidden  # noqa: F401
+from videoseal_tpu_torch.scripts import inflate_model_to_temporal as inflate
+tc = tiny_card(img_size=64, chunk=4)
+tc["embedder"]["params"]["unet"]["conv_layer"] = "conv2p1d"
+tc["extractor"]["params"]["encoder"]["temporal_convs"] = True
+tc["extractor"]["params"]["pixel_decoder"].update(pixelwise=True, upscale_stages=[4, 2, 2])
+tm = vt.VideoSeal.from_card(tc, device="cpu")
+clip = torch.as_tensor(np.random.default_rng(4).integers(0, 256, (6, 64, 96, 3), np.uint8))
+tw = tm.embed(clip, is_video=True)["imgs_w"]
+assert tuple(tm.detect(tw)["preds"].shape) == (6, 32, 32, 17)
+assert tuple(tm.extract_message(tw).shape) == (1, 16)
+from videoseal_tpu_torch import presets
+hc = dict(tc, embedder={"model": "hidden", "params": presets.EMBEDDER["hidden"]},
+          extractor={"model": "hidden", "params": presets.EXTRACTOR["hidden"]})
+hm = vt.VideoSeal.from_card(hc, device="cpu")
+assert tuple(hm.detect(hm.embed(clip[:2])["imgs_w"])["preds"].shape) == (2, 17)
+inflate.main([ckpt, os.path.join(tmp, "inflated.npz")])
+assert "temporal" in checkpoint.load_npz(os.path.join(tmp, "inflated.npz"))[0]["params"][
+    "unet"]["inc"]["conv1"]
 print("OK")
 """
 

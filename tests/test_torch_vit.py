@@ -151,5 +151,13 @@ def test_segmentation_extractor():
 
 
 def test_temporal_attention_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.9"):
-        vit.ImageEncoderViT(**ENC, temporal_attention=True)
+    """Temporal attention no longer raises: the encoder builds a TemporalBlock
+    after each block and pos_embed_temporal, and runs over a clip
+    (tests/test_torch_temporal.py holds it against the linen module)."""
+    enc = vit.ImageEncoderViT(**ENC, temporal_attention=True, max_temporal_length=8)
+    assert len(enc.temp_blocks) == ENC["depth"]
+    assert tuple(enc.pos_embed_temporal.shape) == (8, 1, 1, ENC["embed_dim"])
+    assert tuple(enc.temp_blocks[0].attn.rel_pos.shape) == (15, ENC["embed_dim"] // 2)
+    with torch.no_grad():
+        out = enc(torch.rand((3, 64, 64, 3), generator=torch.Generator().manual_seed(0)))
+    assert tuple(out.shape) == (3, 4, 4, ENC["out_chans"]) and bool(torch.isfinite(out).all())

@@ -316,3 +316,55 @@ def rank_train_main(rank, out):
     saved = {k: v.clone() for k, v in state.embedder.state_dict().items()}
     resumed, _, _ = train.main(common + ["--steps", "1", "--resume", os.path.join(out, "ckpts")])
     return {"step": state.step, "n_ms": len(step_ms), "saved": saved, "resumed": resumed.step}
+
+
+# -- the preset and temporal tests' JAX oracles (test_torch_presets, _temporal) --------
+
+def random_tree(shapes, seed: int):
+    """Numpy variables for a tree of shapes (``jax.eval_shape`` of an init:
+    no init is compiled): kernels N(0, 1/fan_in), norm gains and BatchNorm
+    variances U(0.5, 1.5), everything else N(0, 0.1) (the message tables
+    N(0, 0.5))."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        p = "/".join(str(getattr(k, "key", k)) for k in path)
+        shape = tuple(s.shape)
+        if p.endswith("kernel"):
+            return rng.normal(0, float(np.prod(shape[:-1])) ** -0.5, shape).astype(np.float32)
+        if (p.endswith(("/var", "/scale", "rms/gamma")) or p.endswith("/weight")):
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        return rng.normal(0, 0.5 if "msg_embeddings" in p else 0.1, shape).astype(np.float32)
+
+    import jax
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def jax_random_vars(module, *args, seed: int = 0):
+    """Random numpy variables of a linen `module` applied to `args`."""
+    import jax
+    return random_tree(jax.eval_shape(module.init, jax.random.PRNGKey(0), *args), seed)
+
+
+def jax_model_random(card: dict, seed: int = 0):
+    """JAX VideoSeal for `card` with `random_tree` variables: `jax_model`
+    without the init compiles."""
+    import jax.numpy as jnp
+    from videoseal_tpu.models.embedder import build_embedder
+    from videoseal_tpu.models.extractor import build_extractor
+    from videoseal_tpu.models.videoseal import PipelineConfig, VideoSeal
+    from videoseal_tpu.modules.jnd import build_attenuation
+
+    a, e, x = card["args"], card["embedder"], card["extractor"]
+    s = a["img_size_proc"]
+    emb = build_embedder(e["model"], e["params"], a["nbits"], a["hidden_size_multiplier"])
+    ext = build_extractor(x["model"], x["params"], s, a["nbits"])
+    evars = jax_random_vars(emb.module, jnp.zeros((1, s, s, 1 if emb.yuv else 3)),
+                            jnp.zeros((1, a["nbits"]), jnp.int32), seed=seed)
+    xvars = jax_random_vars(ext.module, jnp.zeros((1, s, s, 3)), seed=seed + 1)
+    cfg = PipelineConfig(img_size=s, blending_method=a["blending_method"],
+                         chunk_size=a["videoseal_chunk_size"],
+                         step_size=a["videoseal_step_size"], video_mode=a["video_mode"],
+                         yuv=emb.yuv, nbits=a["nbits"])
+    return VideoSeal(emb, ext, evars, xvars, build_attenuation(a["attenuation"]), cfg,
+                     scaling_w=a["scaling_w"], scaling_i=a["scaling_i"], card=card)

@@ -11,8 +11,11 @@ key frames embed and spread over the clip (the training step's video
 mode), each row attacks clip by clip on the video grid, and every frame is
 scored. The video grid's codec rows run the on-device proxy, as the JAX
 package's in-training eval does (it jits them); the exact codecs belong to
-``evals/full.py``. The pixelwise columns (accuracy, mIoU) wait for the
-pixelwise decoder (ROADMAP.md 1.9).
+``evals/full.py``. A pixelwise extractor's bit accuracy counts the bits
+under the attacked mask, resized to the prediction's grid (an item whose
+mask is empty is left out of the row's mean); with `lambda_det` > 0 each
+row also logs the detection channel's pixel accuracy and mean IoU against
+the mask before the attack, as the JAX package (and the reference) do.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.metrics import bit_accuracy, psnr, ssim
+from ..ops.metrics import accuracy, bit_accuracy, iou, psnr, ssim
 from ..ops.resize import resize_bilinear
 
 
@@ -33,7 +36,7 @@ def _proxy(aug):
 
 
 def make_intrain_eval(mods, eval_augs: str = "subset", validation_masks=None,
-                      is_video: bool = False):
+                      is_video: bool = False, lambda_det: float = 0.0):
     """eval_fn(state, imgs, generator, msgs=None) -> (scalars dict, imgs_w)
     over TrainerModules `mods`: imgs a held-out (B, H, W, 3) float batch in
     [0, 1] (numpy or tensor), or with is_video (V, F, H, W, 3) clips; the
@@ -64,16 +67,29 @@ def make_intrain_eval(mods, eval_augs: str = "subset", validation_masks=None,
         masks_list = [np.asarray(m, np.float32) for m in validation_masks]
         masks_list = [m[..., None] if m.ndim == 2 else m for m in masks_list]
 
-    def bit_acc(state, imgs, imgs_w, mask, msgs, aug, strength, clips: int) -> float:
+    def row(state, imgs, imgs_w, mask, msgs, aug, strength, clips: int) -> dict:
         """imgs, imgs_w: (N, H, W, 3) frames, `clips` equal clips of them."""
         mask_b = mask.expand((imgs_w.shape[0],) + tuple(imgs_w.shape[1:3]) + (1,))
         masked = imgs_w * mask_b + imgs * (1.0 - mask_b)
         # a video row attacks each clip alone: the temporal attacks take one
         # clip's frames as their leading axis
-        att = torch.cat([aug.apply_strength(x, m, strength)[0] for x, m in
-                         zip(masked.chunk(clips), mask_b.chunk(clips))])
+        outs = [aug.apply_strength(x, m, strength) for x, m in
+                zip(masked.chunk(clips), mask_b.chunk(clips))]
+        att = torch.cat([o[0] for o in outs])
         preds = state.extractor(resize_bilinear(att, s, s))
-        return float(torch.mean(bit_accuracy(preds[..., 1:], msgs)))
+        if preds.dim() != 4:
+            return {"bit_acc": float(torch.mean(bit_accuracy(preds[..., 1:], msgs)))}
+        grid = tuple(preds.shape[1:3])
+        mask_aug = resize_bilinear(torch.cat([o[1] for o in outs]).float(), *grid)
+        out = {"bit_acc": float(torch.nanmean(bit_accuracy(preds[..., 1:], msgs,
+                                                           mask=mask_aug)))}
+        if lambda_det > 0:
+            m_orig = resize_bilinear(mask_b.float(), *grid)
+            det = preds[..., :1]
+            out["acc"] = float(torch.mean(accuracy(det, m_orig)))
+            out["miou"] = float(0.5 * (torch.mean(iou(det, m_orig, label=0))
+                                       + torch.mean(iou(det, m_orig, label=1))))
+        return out
 
     def eval_fn(state, imgs, generator: torch.Generator, msgs: torch.Tensor | None = None):
         dev = next(state.embedder.parameters()).device
@@ -96,8 +112,9 @@ def make_intrain_eval(mods, eval_augs: str = "subset", validation_masks=None,
                     mt = torch.as_tensor(mask, device=dev)
                     sfx = "" if mask_id == 0 else f"_mask{mask_id}"
                     for name, aug, st in rows:
-                        scalars[f"bit_acc_{name}{sfx}"] = bit_acc(state, flat, imgs_w, mt,
-                                                                  frame_msgs, aug, st, clips)
+                        for k, v in row(state, flat, imgs_w, mt, frame_msgs, aug, st,
+                                        clips).items():
+                            scalars[f"{k}_{name}{sfx}"] = v
         finally:
             state.embedder.train(was_training)
         return scalars, imgs_w.reshape(imgs.shape)

@@ -8,6 +8,16 @@ not a multiple of 16 (chunkyseal's) runs at K2's padded width: the
 activation is padded with zero channels once after the stem or downsample
 conv and sliced back once at the stage's end (``convnext_block.py`` says why
 the pads stay zero).
+
+The temporal variants run on this route too. With `temporal_convs` the
+downsample conv of stages 1-3 is a ``Conv2p1dOp``, so its 3x1x1
+convolution over the frames of the chunk runs right after the 2x2 conv,
+before the stage's K2 launches or K3 groups, which are those of the 2D
+model. A block with `temp_block` (temporal attention inside the residual,
+which K2 fuses) cannot go through K2: a stage of such blocks runs their
+module math at its true width, on the CUDA device as on the CPU. (The JAX
+package's fused route has no temporal step at all; the port is held
+against its linen module.)
 """
 
 from __future__ import annotations
@@ -43,15 +53,21 @@ def block_groups(depth: int, max_block_group: int = 1, shape: tuple | None = Non
 def convnext_apply_fused(encoder, x: torch.Tensor, max_block_group: int = 1) -> torch.Tensor:
     """encoder: a ``modules.convnext.ConvNeXtV2``; x (B, H, W, 3) NHWC in
     [-1, 1] -> (B, H/32, W/32, dims[-1]) for stem_stride 4. The stem and the
-    2x2 downsample convs are plain strided convolutions on NCHW. Each stage's
-    blocks run in the groups of `block_groups`: a group of one is a K2
-    launch, a larger group one K3 launch."""
+    2x2 downsample convs are plain strided convolutions on NCHW (with the
+    temporal conv after them where the encoder has one). Each stage's blocks
+    run in the groups of `block_groups`: a group of one is a K2 launch, a
+    larger group one K3 launch; a stage of blocks with `temp_block` runs
+    their module math."""
     conv, norm = encoder.downsample_layers[0]
     x = norm(conv(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
     for i, stage in enumerate(encoder.stages):
         if i > 0:
             norm, conv = encoder.downsample_layers[i]
             x = conv(norm(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if len(stage) and stage[0].temp_block is not None:
+            for blk in stage:
+                x = blk.forward_plain(x)
+            continue
         c, cp = x.shape[-1], padded_width(x.shape[-1])
         x = (F.pad(x, (0, cp - c)) if cp != c else x).contiguous()
         j = 0

@@ -1,7 +1,8 @@
 """Extractor wrapper and builder, counterpart of ``videoseal_tpu/models/extractor.py``.
 
-An extractor maps [0,1] NHWC images to (B, 1 + nbits) logits: the first is
-the detection logit, the rest are the bit logits.
+An extractor maps [0,1] NHWC images to (B, 1 + nbits) logits, or pixelwise
+to (B, H, W, 1 + nbits): the first is the detection logit, the rest are the
+bit logits.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from ..modules.convnext import ConvNeXtV2
+from ..modules.hidden import HiddenDecoder
 from ..modules.pixel_decoder import PixelDecoder
 from ..modules.vit import ImageEncoderViT
 
@@ -39,6 +41,17 @@ class SegmentationExtractor(nn.Module):
         return self.pixel_decoder(self.image_encoder(imgs * 2 - 1))
 
 
+class HiddenExtractor(nn.Module):
+    """The HiDDeN decoder, from the preset's keys (HiddenDecoder's)."""
+
+    def __init__(self, nbits: int, **decoder):
+        super().__init__()
+        self.hidden_decoder = HiddenDecoder(num_bits=nbits, **decoder)
+
+    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
+        return self.hidden_decoder(imgs * 2 - 1)
+
+
 @dataclasses.dataclass
 class ExtractorSpec:
     module: nn.Module
@@ -47,8 +60,7 @@ class ExtractorSpec:
 
 
 def build_extractor(name: str, cfg: dict, img_size: int, nbits: int) -> ExtractorSpec:
-    """Registry keyed by name prefix: convnext* and sam* (the four cards'
-    extractors)."""
+    """Registry keyed by name prefix: convnext*, sam* and hidden*."""
     cfg = {k: dict(v) if isinstance(v, dict) else v for k, v in (cfg or {}).items()}
     enc = cfg.get("encoder", {})
     pd = cfg.get("pixel_decoder", {})
@@ -58,10 +70,13 @@ def build_extractor(name: str, cfg: dict, img_size: int, nbits: int) -> Extracto
         pd.setdefault("embed_dim", enc.get("out_chans", 256))
         return ExtractorSpec(SegmentationExtractor(encoder=enc, pixel_decoder=pd), nbits,
                              pd.get("pixelwise", False))
+    if name.startswith("hidden"):
+        dec = {k: v for k, v in cfg.items() if k != "num_bits"}
+        return ExtractorSpec(HiddenExtractor(nbits, **dec), nbits, dec.get("pixelwise", False))
     if not name.startswith("convnext"):
         raise NotImplementedError(
-            f"Extractor {name}: only the convnext* and sam* extractors are ported; "
-            "dino/hidden/dvmark come with ROADMAP.md 1.9")
+            f"Extractor {name}: only the convnext*, sam* and hidden* extractors are "
+            "ported; dino and dvmark come with ROADMAP.md 1.9")
     if cfg.get("proportional_dim", False):
         # chunkyseal: the dims scale with sqrt(nbits / 128)
         mult = math.sqrt(nbits / 128)

@@ -22,6 +22,7 @@ import torch
 
 from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_blend_up, supports_fused_blend
 from ..kernels.fused_planar import fused_jnd_blend_planar, resize_planar
+from ..modules.common import mixes_frames
 from ..modules.jnd import JND, build_attenuation
 from ..modules.msg_processor import get_random_msg
 from ..ops.color import rgb_to_y
@@ -78,11 +79,22 @@ def _expand_video_mode(preds: torch.Tensor, total_frames: int, step_size: int,
     return out[:total_frames]
 
 
-def _chunked_apply(fn, xs: tuple, chunk_size: int) -> torch.Tensor:
-    """fn over the leading axis of every tensor in xs, chunk_size at a time."""
+def _chunked_apply(fn, xs: tuple, chunk_size: int, pad_last: bool = False) -> torch.Tensor:
+    """fn over the leading axis of every tensor in xs, chunk_size at a time.
+
+    With `pad_last` (a model that mixes frames: a temporal or 3D conv,
+    temporal attention) a short last chunk of an input longer than one chunk
+    is filled up to chunk_size with copies of the input's frame 0 and the
+    fill's outputs dropped, as the JAX package's ``lax.map`` over padded
+    chunks does: the last real frames then see the same neighbours as there.
+    Otherwise the short chunk runs as it is."""
     n = xs[0].shape[0]
-    outs = [fn(tuple(a[i:i + chunk_size] for a in xs)) for i in range(0, n, chunk_size)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    pad = (-n) % chunk_size if pad_last and n > chunk_size else 0
+    if pad:
+        xs = tuple(torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))]) for a in xs)
+    outs = [fn(tuple(a[i:i + chunk_size] for a in xs)) for i in range(0, n + pad, chunk_size)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    return out[:n] if pad else out
 
 
 def _make_run_embedder(embedder, cfg: PipelineConfig, pre_scale: float | None = None):
@@ -123,11 +135,13 @@ def embed_pipeline(embedder, attenuation: JND | None, cfg: PipelineConfig,
                 keys = resize_bilinear(imgs[::cfg.step_size], s, s,
                                        precision=cfg.resize_precision)
             key_msgs = msgs[:1].expand(keys.shape[0], msgs.shape[-1])
-            preds = _chunked_apply(run_embedder, (keys, key_msgs), cfg.chunk_size)
+            preds = _chunked_apply(run_embedder, (keys, key_msgs), cfg.chunk_size,
+                                   mixes_frames(embedder))
             preds = _expand_video_mode(preds, imgs.shape[0], cfg.step_size, cfg.video_mode)
         else:
             imgs_res = resize_bilinear(imgs, s, s, precision=cfg.resize_precision)
-            preds = _chunked_apply(run_embedder, (imgs_res, msgs), cfg.chunk_size)
+            preds = _chunked_apply(run_embedder, (imgs_res, msgs), cfg.chunk_size,
+                                   mixes_frames(embedder))
 
     preds = preds.float()  # the full-resolution watermark math stays f32
     if lowres:
@@ -188,7 +202,8 @@ def embed_pipeline_planar(embedder, attenuation: JND, cfg: PipelineConfig,
                              precision=cfg.resize_precision)
     key_msgs = msgs[:1].expand(keys.shape[0], msgs.shape[-1])
     with torch.no_grad():
-        preds = _chunked_apply(run_embedder, (keys, key_msgs), cfg.chunk_size)
+        preds = _chunked_apply(run_embedder, (keys, key_msgs), cfg.chunk_size,
+                               mixes_frames(embedder))
     preds = _expand_video_mode(preds, imgs_p.shape[0], cfg.step_size,
                                cfg.video_mode).float()
     if preds.shape[-1] != 1:
@@ -209,11 +224,12 @@ def embed_pipeline_planar(embedder, attenuation: JND, cfg: PipelineConfig,
 
 
 def _detect_resized(extractor, cfg: PipelineConfig, imgs_res: torch.Tensor) -> torch.Tensor:
-    """Extractor over processing-resolution [0,1] NHWC frames -> f32 logits."""
+    """Extractor over processing-resolution [0,1] NHWC frames -> f32 logits
+    (B, 1 + nbits), or a pixelwise extractor's (B, s, s, 1 + nbits)."""
     cdtype = _DTYPES[cfg.compute_dtype]
     with torch.no_grad():
         return _chunked_apply(lambda b: extractor(b[0].to(cdtype)).float(),
-                              (imgs_res,), cfg.chunk_size)
+                              (imgs_res,), cfg.chunk_size, mixes_frames(extractor))
 
 
 def detect_pipeline(extractor, cfg: PipelineConfig, imgs: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,12 @@ modules, so a reference state_dict loads directly:
   "group" ``nn.GroupNorm`` (8 groups, eps 1e-5); "layer" a
   ``ChannelLayerNorm``; "rms" ``ChanRMSNorm``, ``gamma`` of shape (C, 1, 1);
 * GELU is the exact erf form (``nn.GELU()``); SiLU and LeakyReLU (slope 0.2)
-  complete the activation registry.
+  complete the activation registry;
+* ``Upsample`` (nearest, bilinear, transposed conv, pixelshuffle) and
+  ``Downsample`` (pixel unshuffle, 1x1 conv);
+* ``Conv2dOp``, ``Conv3dOp``, ``Conv2p1dOp`` (``get_conv_op``) and
+  ``TemporalConv``: the batch axis of a video chunk is time, so a 3D or
+  temporal convolution mixes the frames of the batch it is given.
 """
 
 from __future__ import annotations
@@ -216,24 +221,157 @@ class ReflectPad1(nn.Module):
         return x
 
 
+class Nearest(nn.Module):
+    """Nearest x`factor` resample of NCHW input (each pixel repeated)."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x):
+        f = self.factor
+        return x if f == 1 else x.repeat_interleave(f, dim=-2).repeat_interleave(f, dim=-1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax's ``nn.ConvTranspose`` (stride = kernel, VALID) on NCHW input. The
+    weight (I, O, kh, kw) is the JAX kernel (kh, kw, I, O) transposed, as the
+    reference's converter reads it; flax applies that kernel spatially
+    flipped against ``nn.ConvTranspose2d``, so the forward flips it."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.flip(-2, -1), self.bias, self.stride)
+
+
 class Upsample(nn.Module):
-    """Bilinear upscale block on NCHW: resample -> reflect pad -> 3x3 conv
-    -> channel LN -> act. `upsample_block` indices follow the reference."""
+    """Upscale block on NCHW; `upsample_block` indices follow the reference:
+
+    * nearest | bilinear: resample -> reflect pad -> 3x3 conv -> channel LN
+      -> act (conv at index 2, LN at 3);
+    * conv: transposed conv (kernel = stride = factor, with bias) -> LN -> act;
+    * pixelshuffle: 1x1 conv to out * f * f -> LN -> act -> PixelShuffle(f),
+      whose (c, f, f) channel order is JAX's NHWC depth-to-space."""
 
     def __init__(self, upscale_type: str, in_channels: int, out_channels: int,
                  up_factor: int, activation: str):
         super().__init__()
-        if upscale_type != "bilinear":
-            raise NotImplementedError(
-                f"upscale_type {upscale_type!r}: ROADMAP.md 1.9")
-        self.upsample_block = nn.Sequential(
-            Interpolate(up_factor),
-            ReflectPad1(),
-            nn.Conv2d(in_channels, out_channels, 3, bias=False),
-            ChannelLayerNorm(out_channels),
-            get_activation(activation),
-        )
+        f = up_factor
+        if upscale_type in ("nearest", "bilinear"):
+            layers = [Nearest(f) if upscale_type == "nearest" else Interpolate(f), ReflectPad1(),
+                      nn.Conv2d(in_channels, out_channels, 3, bias=False),
+                      ChannelLayerNorm(out_channels)]
+        elif upscale_type == "conv":
+            layers = [ConvTranspose(in_channels, out_channels, f, stride=f),
+                      ChannelLayerNorm(out_channels)]
+        elif upscale_type == "pixelshuffle":
+            layers = [nn.Conv2d(in_channels, out_channels * f * f, 1, bias=False),
+                      ChannelLayerNorm(out_channels * f * f)]
+        else:
+            raise ValueError(f"Invalid upscaling type: {upscale_type}")
+        layers.append(get_activation(activation))
+        if upscale_type == "pixelshuffle":
+            layers.append(nn.PixelShuffle(f))
+        self.upsample_block = nn.Sequential(*layers)
 
     def forward(self, x):
         return self.upsample_block(x)
 
+
+class Downsample(nn.Module):
+    """PixelUnshuffle(2) -> 1x1 conv (with bias) -> act on NCHW; torch's
+    (c, 2, 2) channel order is JAX's. The conv is ``downsample_block.1``."""
+
+    def __init__(self, in_channels: int, out_channels: int, activation: str):
+        super().__init__()
+        self.downsample_block = nn.Sequential(
+            nn.PixelUnshuffle(2), nn.Conv2d(4 * in_channels, out_channels, 1),
+            get_activation(activation))
+
+    def forward(self, x):
+        return self.downsample_block(x)
+
+
+# -- convolutions over frames: the batch axis of NCHW input is time ----------
+
+class TemporalConv(nn.Conv3d):
+    """A k x 1 x 1 convolution over the frame axis, zero-padded by k // 2 at
+    both ends, without bias: (F, C, H, W) -> (F, C', H, W). Its weight is
+    (C', C, k, 1, 1), the reference's ``temp_conv``."""
+
+    mixes_frames = True
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
+        super().__init__(in_channels, out_channels, (kernel_size, 1, 1),
+                         padding=(kernel_size // 2, 0, 0), bias=False)
+
+    def forward(self, x):
+        return super().forward(x.transpose(0, 1)[None])[0].transpose(0, 1)
+
+
+def _same_pad(kernel_size: int, padding) -> int:
+    return kernel_size // 2 if padding is None else padding
+
+
+class Conv2dOp(nn.Conv2d):
+    """A 2D convolution, frames riding the batch axis; padding defaults to
+    k // 2. The reference's plain ``nn.Conv2d`` (``<p>.weight``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int | None = None, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=_same_pad(kernel_size, padding), bias=bias)
+
+
+class Conv3dOp(nn.Module):
+    """A k x k x k convolution over (frames, H, W), the batch axis as time,
+    stride (1, s, s): (F, C, H, W) -> (F, C', H', W'). ``<p>.conv.weight`` is
+    (C', C, k, k, k)."""
+
+    mixes_frames = True
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int | None = None, bias: bool = True):
+        super().__init__()
+        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size, stride=(1, stride, stride),
+                              padding=_same_pad(kernel_size, padding), bias=bias)
+
+    def forward(self, x):
+        return self.conv(x.transpose(0, 1)[None])[0].transpose(0, 1)
+
+
+class Conv2p1dOp(nn.Module):
+    """A 2D convolution (``<p>.conv``), then a `temporal_kernel_size` x 1 x 1
+    convolution over frames (``<p>.temp_conv``, no bias). The temporal
+    kernel defaults to the spatial one, and a 1x1 convolution has none, as
+    in the JAX package."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int | None = None, bias: bool = True,
+                 temporal_kernel_size: int | None = None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                              padding=_same_pad(kernel_size, padding), bias=bias)
+        kt = kernel_size if temporal_kernel_size is None else temporal_kernel_size
+        self.temp_conv = (TemporalConv(out_channels, out_channels, kt)
+                          if kernel_size != 1 else None)
+
+    def forward(self, x):
+        x = self.conv(x)
+        return x if self.temp_conv is None else self.temp_conv(x)
+
+
+def get_conv_op(name: str):
+    if name == "conv2d":
+        return Conv2dOp
+    if name == "conv3d":
+        return Conv3dOp
+    if name == "conv2p1d":
+        return Conv2p1dOp
+    raise NotImplementedError(f"conv layer {name!r}")
+
+
+def mixes_frames(module: nn.Module) -> bool:
+    """Does `module` hold a layer whose output at a frame depends on other
+    frames (a temporal or 3D convolution, temporal attention: each sets
+    ``mixes_frames``)?"""
+    return any(getattr(m, "mixes_frames", False) for m in module.modules())

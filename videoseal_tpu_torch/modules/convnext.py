@@ -16,6 +16,14 @@ reference state_dict (``downsample_layers``, ``stages``). Two routes, split by
 
 The stem (4x4, stride 4) and the 2x2 downsample convs are plain strided
 convolutions on both routes.
+
+Temporal variants (``convnext_tiny_temporal``): `temporal_convs` follows the
+downsample conv of stages 1-3 with a 3x1x1 convolution over the frames of
+the batch (``downsample_layers.{i}.1`` is a ``Conv2p1dOp``: ``.conv`` and
+``.temp_conv``), on both routes. `temporal_attention` puts a
+``TemporalBlock`` (attention across frames) inside each block's residual,
+after pwconv2; K2 fuses the residual, so such a block runs its module math
+on both routes (no preset sets it).
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from torch import nn
 
 from ..kernels.convnext_block import convnext_block_fused, kernel_params, padded_width
 from ..kernels.convnext_fused import convnext_apply_fused
-from .common import GRN, ChannelLayerNorm
+from .common import GRN, ChannelLayerNorm, Conv2p1dOp
+from .vit import TemporalBlock
 
 
 def differentiable(module: nn.Module, x: torch.Tensor) -> bool:
@@ -39,28 +48,33 @@ def differentiable(module: nn.Module, x: torch.Tensor) -> bool:
 
 
 class ConvNeXtBlock(nn.Module):
-    """dwconv7x7 -> LN -> pw(4x) -> GELU -> GRN -> pw -> residual. The
-    kernel route runs K2 (at K2's padded width where dim is not a multiple of
-    16: x is padded and the result sliced here; the extractor's route pads
-    once a stage)."""
+    """dwconv7x7 -> LN -> pw(4x) -> GELU -> GRN -> pw [-> temp_block] ->
+    residual. The kernel route runs K2 (at K2's padded width where dim is not
+    a multiple of 16: x is padded and the result sliced here; the
+    extractor's route pads once a stage); a block with `temp_block` takes
+    its module math on both routes."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, temporal_attention: bool = False):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = ChannelLayerNorm(dim, channels_last=True)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
         self.grn = GRN(4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.temp_block = (TemporalBlock(dim, num_heads=dim // 48, use_rel_pos=True,
+                                         video_len=32) if temporal_attention else None)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The linen block's math on the live parameters (NHWC, x's dtype)."""
         h = self.dwconv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         h = self.pwconv1(self.norm(h))
         h = self.pwconv2(self.grn(F.gelu(h)))
+        if self.temp_block is not None:
+            h = self.temp_block(h)
         return x + h
 
     def forward(self, x):
-        if differentiable(self, x):
+        if differentiable(self, x) or self.temp_block is not None:
             return self.forward_plain(x)
         c = x.shape[-1]
         if padded_width(c) == c:
@@ -78,17 +92,18 @@ class ConvNeXtV2(nn.Module):
                  in_chans: int = 3, temporal_convs: bool = False,
                  temporal_attention: bool = False):
         super().__init__()
-        if temporal_convs or temporal_attention:
-            raise NotImplementedError("temporal ConvNeXt layers: ROADMAP.md 1.9")
         self.downsample_layers = nn.ModuleList([nn.Sequential(
             nn.Conv2d(in_chans, dims[0], 4, stride=stem_stride),
             ChannelLayerNorm(dims[0]))])
         for i in range(1, 4):
+            conv = (Conv2p1dOp(dims[i - 1], dims[i], 2, stride=2, padding=0,
+                               temporal_kernel_size=3) if temporal_convs
+                    else nn.Conv2d(dims[i - 1], dims[i], 2, stride=2))
             self.downsample_layers.append(nn.Sequential(
-                ChannelLayerNorm(dims[i - 1], channels_last=True),
-                nn.Conv2d(dims[i - 1], dims[i], 2, stride=2)))
+                ChannelLayerNorm(dims[i - 1], channels_last=True), conv))
         self.stages = nn.ModuleList(
-            nn.Sequential(*[ConvNeXtBlock(dims[i]) for _ in range(depths[i])])
+            nn.Sequential(*[ConvNeXtBlock(dims[i], temporal_attention)
+                            for _ in range(depths[i])])
             for i in range(4))
 
     def forward(self, x):

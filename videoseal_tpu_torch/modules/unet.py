@@ -1,9 +1,13 @@
 """UNetMsg, the watermark embedder, counterpart of ``videoseal_tpu/modules/unet.py``.
 
-NCHW throughout. inc ResnetBlock -> DBlocks (stride-2 3x3 conv + ResnetBlock)
--> message concat at the bottleneck -> num_blocks ResnetBlocks -> UBlocks
-(2x bilinear Upsample + ResnetBlock) with skip concats scaled by 2**-0.5 ->
-1x1 conv -> tanh. Submodule names follow the reference state_dict.
+NCHW throughout. inc ResnetBlock -> DBlocks (stride-2 3x3 conv or pixel
+unshuffle + ResnetBlock) -> message concat (or add) at the bottleneck ->
+num_blocks ResnetBlocks -> UBlocks (2x Upsample of `upsampling_type` +
+ResnetBlock) with skip concats scaled by 2**-0.5 -> 1x1 conv -> tanh. The
+ResnetBlocks' convs are `conv_layer` ops: conv2d, or conv3d / conv2p1d,
+which treat the batch of a video chunk as time (the embedders that
+``scripts/inflate_model_to_temporal.py`` makes). Submodule names follow the
+reference state_dict.
 """
 
 from __future__ import annotations
@@ -13,36 +17,45 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .common import Upsample, get_activation, make_norm
+from .common import Downsample, Upsample, get_activation, get_conv_op, make_norm
 from .msg_processor import MsgProcessor
 
 
 class ResnetBlock(nn.Module):
-    """2 x (conv3x3 - norm - act) + 1x1 residual conv."""
+    """2 x (conv3x3 - norm - act) + 1x1 residual conv, each conv a
+    `conv_layer` op (``modules/common.get_conv_op``)."""
 
     def __init__(self, in_channels: int, out_channels: int, activation: str,
-                 normalization: str):
+                 normalization: str, conv_layer: str = "conv2d"):
         super().__init__()
+        conv = get_conv_op(conv_layer)
         self.double_conv = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
+            conv(in_channels, out_channels, 3, bias=False),
             make_norm(normalization, out_channels),
             get_activation(activation),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
+            conv(out_channels, out_channels, 3, bias=False),
             make_norm(normalization, out_channels),
             get_activation(activation),
         )
-        self.res_conv = nn.Conv2d(in_channels, out_channels, 1)
+        self.res_conv = conv(in_channels, out_channels, 1)
 
     def forward(self, x):
         return self.double_conv(x) + self.res_conv(x)
 
 
 class DBlock(nn.Module):
+    """Downsample (a stride-2 3x3 conv for "bilinear", else ``Downsample``:
+    pixel unshuffle and a 1x1 conv) + ResnetBlock."""
+
     def __init__(self, in_channels: int, out_channels: int, activation: str,
-                 normalization: str):
+                 normalization: str, downsampling_type: str = "bilinear",
+                 conv_layer: str = "conv2d"):
         super().__init__()
-        self.down = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
-        self.conv = ResnetBlock(out_channels, out_channels, activation, normalization)
+        self.down = (nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
+                     if downsampling_type == "bilinear"
+                     else Downsample(in_channels, out_channels, activation))
+        self.conv = ResnetBlock(out_channels, out_channels, activation, normalization,
+                                conv_layer)
 
     def forward(self, x):
         return self.conv(self.down(x))
@@ -50,22 +63,25 @@ class DBlock(nn.Module):
 
 class UBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, activation: str,
-                 normalization: str):
+                 normalization: str, upsampling_type: str = "bilinear",
+                 conv_layer: str = "conv2d"):
         super().__init__()
-        self.up = Upsample("bilinear", in_channels, out_channels, 2, activation)
-        self.conv = ResnetBlock(out_channels, out_channels, activation, normalization)
+        self.up = Upsample(upsampling_type, in_channels, out_channels, 2, activation)
+        self.conv = ResnetBlock(out_channels, out_channels, activation, normalization,
+                                conv_layer)
 
     def forward(self, x):
         return self.conv(self.up(x))
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, channels: int, num_blocks: int, activation: str,
-                 normalization: str):
+    def __init__(self, in_channels: int, channels: int, num_blocks: int, activation: str,
+                 normalization: str, conv_layer: str = "conv2d"):
         super().__init__()
         self.model = nn.Sequential(*[
-            ResnetBlock(channels, channels, activation, normalization)
-            for _ in range(num_blocks)])
+            ResnetBlock(in_channels if j == 0 else channels, channels, activation,
+                        normalization, conv_layer)
+            for j in range(num_blocks)])
 
     def forward(self, x):
         return self.model(x)
@@ -83,23 +99,21 @@ class UNetMsg(nn.Module):
                  msg_processor_type: str = "binary+concat",
                  conv_layer: str = "conv2d"):
         super().__init__()
-        if (upsampling_type, downsampling_type, conv_layer) != (
-                "bilinear", "bilinear", "conv2d"):
-            raise NotImplementedError(
-                "only bilinear up/downsampling with conv2d layers is ported "
-                "(ROADMAP.md 1.9)")
         zc = [z_channels * m for m in z_channels_mults]
-        kw = dict(activation=activation, normalization=normalization)
+        kw = dict(activation=activation, normalization=normalization, conv_layer=conv_layer)
         self.inc = ResnetBlock(in_channels, zc[0], **kw)
         self.downs = nn.ModuleList(
-            DBlock(zc[i], zc[i + 1], **kw) for i in range(len(zc) - 1))
+            DBlock(zc[i], zc[i + 1], downsampling_type=downsampling_type, **kw)
+            for i in range(len(zc) - 1))
         self.msg_processor = MsgProcessor(nbits, hidden_size, msg_processor_type)
+        # the message latent is also the first skip connection
+        lat = self.msg_processor.out_channels(zc[-1])
         bott = zc[-1] + hidden_size
-        self.bottleneck = Bottleneck(bott, num_blocks, **kw)
+        self.bottleneck = Bottleneck(lat, bott, num_blocks, **kw)
         ups = []
         for i, ii in enumerate(reversed(range(len(zc) - 1))):
-            in_c = 2 * bott if i == 0 else 2 * zc[ii + 1]
-            ups.append(UBlock(in_c, zc[ii], **kw))
+            in_c = bott + lat if i == 0 else 2 * zc[ii + 1]
+            ups.append(UBlock(in_c, zc[ii], upsampling_type=upsampling_type, **kw))
         self.ups = nn.ModuleList(ups)
         self.outc = nn.Conv2d(zc[0], out_channels, 1)
         self.last_tanh = last_tanh

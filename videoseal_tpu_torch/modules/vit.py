@@ -12,8 +12,9 @@ and every LayerNorm run in float32 and round to the model's dtype after.
 Parameter names follow the reference state dict (``patch_embed.proj``,
 ``pos_embed``, ``blocks.{i}.norm1/norm2``, ``attn.qkv``, ``attn.proj``,
 ``attn.rel_pos_h/_w``, ``mlp.lin1/lin2``, ``neck.0..3``). The temporal
-variant (temporal attention blocks, ``pos_embed_temporal``) is on no card:
-ROADMAP.md 1.9.
+variant adds a ``TemporalBlock`` after each block (``temp_blocks.{i}``:
+attention across the frames of the batch at each location) and
+``pos_embed_temporal``; it is on no card or preset.
 """
 
 from __future__ import annotations
@@ -72,6 +73,38 @@ class Attention(nn.Module):
                     + rel_w.float()[..., None, :]).view(b, nh, h * w, h * w)
         out = torch.softmax(attn, dim=-1).to(v.dtype) @ v
         return self.proj(out.transpose(1, 2).reshape(b, h, w, dim))
+
+
+class TemporalAttention(nn.Module):
+    """Attention across frames at each spatial location: (F, H, W, C) in,
+    the frame axis the token axis, optionally with a relative position bias
+    over frames (`rel_pos`, 2 * video_len - 1 rows, resampled by
+    `get_rel_pos` to 2F - 1 where F differs from video_len)."""
+
+    mixes_frames = True
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
+                 use_rel_pos: bool = False, video_len: int | None = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.use_rel_pos = use_rel_pos
+        if use_rel_pos:
+            self.rel_pos = nn.Parameter(torch.zeros(2 * video_len - 1, dim // num_heads))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f, h, w, dim = x.shape
+        nh = self.num_heads
+        hd = dim // nh
+        # (hw, nh, f, hd) each: the frames are the tokens
+        q, k, v = self.qkv(x).reshape(f, h * w, 3, nh, hd).permute(2, 1, 3, 0, 4)
+        attn = ((q * hd ** -0.5) @ k.transpose(-2, -1)).float()   # (hw, nh, f, f)
+        if self.use_rel_pos:
+            attn = attn + torch.einsum("snqc,qkc->snqk", q,
+                                       get_rel_pos(f, f, self.rel_pos)).float()
+        out = torch.softmax(attn, dim=-1).to(v.dtype) @ v
+        return self.proj(out.permute(2, 0, 1, 3).reshape(f, h, w, dim))
 
 
 class MLPBlock(nn.Module):
@@ -136,6 +169,25 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+class TemporalBlock(nn.Module):
+    """x + mlp(norm2(attn(norm1(x)))) with attention across frames: the
+    MLP's output replaces the attention's in the residual, as in the
+    reference. Names: ``norm1``, ``attn.{qkv,proj,rel_pos}``, ``norm2``,
+    ``mlp.lin1/lin2``."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, use_rel_pos: bool = False,
+                 video_len: int | None = None):
+        super().__init__()
+        self.norm1 = ChannelLayerNorm(dim, channels_last=True)
+        self.attn = TemporalAttention(dim, num_heads, qkv_bias, use_rel_pos, video_len)
+        self.norm2 = ChannelLayerNorm(dim, channels_last=True)
+        self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
+
+    def forward(self, x):
+        return x + self.mlp(self.norm2(self.attn(self.norm1(x))))
+
+
 class ImageEncoderViT(nn.Module):
     """(B, img_size, img_size, in_chans) NHWC -> (B, g, g, out_chans),
     g = img_size // patch_size."""
@@ -147,8 +199,6 @@ class ImageEncoderViT(nn.Module):
                  global_attn_indexes: Sequence[int] = (), temporal_attention: bool = False,
                  max_temporal_length: int = 32):
         super().__init__()
-        if temporal_attention:
-            raise NotImplementedError("temporal ViT attention: ROADMAP.md 1.9")
         grid = img_size // patch_size
         self.patch_embed = nn.Module()
         self.patch_embed.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
@@ -158,6 +208,15 @@ class ImageEncoderViT(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, use_rel_pos,
                   0 if i in tuple(global_attn_indexes) else window_size, (grid, grid))
             for i in range(depth))
+        # temporal attention after every block, the frames of the batch
+        # its tokens; pos_embed_temporal is added to the first F frames
+        self.temp_blocks = nn.ModuleList(
+            TemporalBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, use_rel_pos,
+                          max_temporal_length)
+            for _ in range(depth)) if temporal_attention else None
+        self.pos_embed_temporal = (
+            nn.Parameter(torch.zeros(max_temporal_length, 1, 1, embed_dim))
+            if temporal_attention and use_abs_pos else None)
         self.neck = nn.Sequential(
             nn.Conv2d(embed_dim, out_chans, 1, bias=False), ChannelLayerNorm(out_chans),
             nn.Conv2d(out_chans, out_chans, 3, padding=1, bias=False),
@@ -167,6 +226,10 @@ class ImageEncoderViT(nn.Module):
         x = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.pos_embed is not None:
             x = x + self.pos_embed
-        for blk in self.blocks:
+        if self.pos_embed_temporal is not None:
+            x = x + self.pos_embed_temporal[:x.shape[0]]
+        for i, blk in enumerate(self.blocks):
             x = blk(x)
+            if self.temp_blocks is not None:
+                x = self.temp_blocks[i](x)
         return self.neck(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

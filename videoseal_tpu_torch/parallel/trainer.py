@@ -37,6 +37,7 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from ..losses.videosealloss import VideoSealLoss
@@ -213,6 +214,11 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
         imgs_aug, mask_t, _ = mods.augmenter(generator, imgs_w, imgs_flat, masks_flat,
                                              is_video=is_video, train=True, mesh=mesh)
         preds = state.extractor(resize_bilinear(imgs_aug, s, s)) / mods.temperature
+        if preds.dim() == 4 and tuple(preds.shape[1:3]) != tuple(mask_t.shape[1:3]):
+            # a pixelwise map on a coarser grid than the frames (convnext_tiny_pw:
+            # 32x down, 16x up) is held to the mask's share of each of its pixels
+            mask_t = F.interpolate(mask_t.permute(0, 3, 1, 2), size=tuple(preds.shape[1:3]),
+                                   mode="area").permute(0, 2, 3, 1)
         losses, weights = loss_cfg.generator_losses(
             imgs_flat, imgs_w, mask_t, msgs_frames, preds, _frozen(state.discriminator),
             state.step)

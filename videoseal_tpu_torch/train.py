@@ -369,14 +369,16 @@ def main(argv=None):
                                                                                   img_size)]
             ds_eval = loaders["img"].ds
             evals.append(("", make_intrain_eval(mods, eval_augs=args.eval_augs,
-                                                validation_masks=val_masks),
+                                                validation_masks=val_masks,
+                                                lambda_det=args.lambda_det),
                           np.stack([ds_eval[i][0] for i in range(min(args.eval_samples,
                                                                      len(ds_eval)))])))
         if "vid" in loaders:
             vds_eval = loaders["vid"].ds
             n_clips = min(max(1, args.eval_samples // args.frames_per_clip), len(vds_eval))
             evals.append(("vid_", make_intrain_eval(mods, eval_augs=args.eval_augs,
-                                                    is_video=True),
+                                                    is_video=True,
+                                                    lambda_det=args.lambda_det),
                           np.stack([vds_eval[i][0] for i in range(n_clips)])))
 
     def run_eval(epoch, it):

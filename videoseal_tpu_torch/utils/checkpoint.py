@@ -61,10 +61,9 @@ def save_npz(path: str, model, args: dict | None = None) -> None:
     package can rebuild the model without a card."""
     from .convert import to_jax_variables
 
-    unet_norm = model.card.get("embedder", {}).get("params", {}).get("unet", {}).get(
-        "normalization", "batch")
     emb_vars, ext_vars = to_jax_variables(model.embedder.state_dict(),
-                                          model.extractor.state_dict(), unet_norm)
+                                          model.extractor.state_dict(),
+                                          _unet_norm(model.embedder), _unet_norm(model.extractor))
     flat = {f"embedder{SEP}{k}": v for k, v in flatten_tree(emb_vars).items()}
     flat.update({f"extractor{SEP}{k}": v for k, v in flatten_tree(ext_vars).items()})
     if args is not None:
@@ -123,7 +122,8 @@ def load_into(path: str, embedder: torch.nn.Module, extractor: torch.nn.Module) 
 
 
 def _unet_norm(embedder: torch.nn.Module) -> str:
-    """The UNet's `normalization`, from its first norm module's type."""
+    """A module's `normalization` (the UNet's, HiDDeN's), from its first
+    norm module's type."""
     from ..modules.common import ChannelLayerNorm, ChanRMSNorm
 
     for m in embedder.modules():
@@ -171,7 +171,8 @@ def save_train_state(path: str, state) -> None:
 
     emb_vars, ext_vars = to_jax_variables(state.embedder.state_dict(),
                                           state.extractor.state_dict(),
-                                          _unet_norm(state.embedder))
+                                          _unet_norm(state.embedder),
+                                          _unet_norm(state.extractor))
     flat = {f"embedder{SEP}{k}": v for k, v in flatten_tree(emb_vars).items()}
     flat.update({f"extractor{SEP}{k}": v for k, v in flatten_tree(ext_vars).items()})
     flat.update({f"discriminator{SEP}{k}": v for k, v in

@@ -8,6 +8,8 @@ port's modules, with the reference's torch names and layouts;
 writes what it returns):
 
   conv kernel HWIO (kh, kw, I, O)      -> OIHW
+  3D kernel (kt, kh, kw, I, O)         -> (O, I, kt, kh, kw)
+  ConvTranspose (kh, kw, I, O)         -> (I, O, kh, kw)
   depthwise (7, 7, 1, C)               -> (C, 1, 7, 7)  (the same transpose)
   Dense kernel (in, out)               -> Linear weight (out, in)
   BatchNorm scale/bias, mean/var       -> weight/bias, running_mean/running_var
@@ -16,8 +18,13 @@ writes what it returns):
   GRN gamma/beta (D,)                  -> (1, 1, 1, D)
   ViT pos_embed, rel_pos_h / rel_pos_w -> as they are
 
-The extractor's rules follow its parameter tree: ``encoder.block_*`` is the
-SAM ViT of videoseal_0.0, ``encoder.stage*`` a ConvNeXtV2.
+Each module's rules follow its parameter tree: ``unet`` or
+``hidden_encoder`` for the embedder (the UNet's conv_layer from its first
+conv: ``spatial``/``temporal`` subtrees are conv2p1d, a 5-D kernel
+conv3d), ``encoder.block_*`` the SAM ViT of videoseal_0.0,
+``encoder.stage*`` a ConvNeXtV2 (temporal where ``down1_temporal`` is
+present), ``hidden_decoder`` HiDDeN's; each Upsample block's form from its
+subtree (a bias marks the transposed conv, a 1x1 kernel pixelshuffle).
 """
 
 from __future__ import annotations
@@ -30,19 +37,26 @@ import torch
 from .checkpoint import SEP, unflatten_tree
 
 # substitutions applied in order to a JAX path joined with "."
-_UNET = [
+_UNET_BASE = [
     (r"^downs_(\d+)\.", r"downs.\1."),
     (r"^bottleneck_(\d+)\.", r"bottleneck.model.\1."),
     (r"^ups_(\d+)\.", r"ups.\1."),
+    (r"\.down\.conv\.", ".down.downsample_block.1."),
     (r"\.norm1\.(bn|gn|ln|rms)\.", ".double_conv.1."),
     (r"\.norm2\.(bn|gn|ln|rms)\.", ".double_conv.4."),
-    (r"\.conv1\.conv\.", ".double_conv.0."),
-    (r"\.conv2\.conv\.", ".double_conv.3."),
-    (r"\.res_conv\.conv\.", ".res_conv."),
-    (r"\.up\.conv\.", ".up.upsample_block.2."),
-    (r"\.up\.norm\.", ".up.upsample_block.3."),
     (r"^msg_processor\.msg_embeddings$", "msg_processor.msg_embeddings.weight"),
 ]
+# the ResnetBlocks' Conv*Op layouts, by conv_layer
+_UNET_CONV = {
+    "conv2d": [(r"\.(conv[12]|res_conv)\.conv\.", lambda m: f".{_RESNET_CONV[m[1]]}.")],
+    "conv3d": [(r"\.(conv[12]|res_conv)\.conv\.",
+                lambda m: f".{_RESNET_CONV[m[1]]}.conv.")],
+    "conv2p1d": [(r"\.(conv[12]|res_conv)\.spatial\.conv\.",
+                  lambda m: f".{_RESNET_CONV[m[1]]}.conv."),
+                 (r"\.(conv[12])\.temporal\.", lambda m: f".{_RESNET_CONV[m[1]]}.temp_conv.")],
+}
+_UNET = _UNET_CONV["conv2d"] + _UNET_BASE
+_RESNET_CONV = {"conv1": "double_conv.0", "conv2": "double_conv.3", "res_conv": "res_conv"}
 _CONVNEXT = [
     (r"^encoder\.stem_conv\.", "convnext.downsample_layers.0.0."),
     (r"^encoder\.stem_norm\.", "convnext.downsample_layers.0.1."),
@@ -50,16 +64,28 @@ _CONVNEXT = [
     (r"^encoder\.down(\d)_conv\.", r"convnext.downsample_layers.\1.1."),
     (r"^encoder\.stage(\d)_block(\d+)\.", r"convnext.stages.\1.\2."),
 ]
+# temporal_convs: the downsample conv is a Conv2p1dOp
+_CONVNEXT_TEMPORAL = [
+    (r"^encoder\.down(\d)_conv\.", r"convnext.downsample_layers.\1.1.conv."),
+    (r"^encoder\.down(\d)_temporal\.conv\.", r"convnext.downsample_layers.\1.1.temp_conv."),
+]
 _PIXEL_DECODER = [
-    (r"^pixel_decoder\.up_(\d+)\.conv\.", r"pixel_decoder.output_upscaling.\1.upsample_block.2."),
-    (r"^pixel_decoder\.up_(\d+)\.norm\.", r"pixel_decoder.output_upscaling.\1.upsample_block.3."),
+    (r"^pixel_decoder\.up_(\d+)\.", r"pixel_decoder.output_upscaling.\1."),
 ]
 _VIT = [
     (r"^encoder\.patch_embed\.", "image_encoder.patch_embed.proj."),
-    (r"^encoder\.pos_embed$", "image_encoder.pos_embed"),
+    (r"^encoder\.pos_embed(_temporal)?$", r"image_encoder.pos_embed\1"),
     (r"^encoder\.block_(\d+)\.", r"image_encoder.blocks.\1."),
+    (r"^encoder\.temp_block_(\d+)\.", r"image_encoder.temp_blocks.\1."),
     (r"^encoder\.neck_conv(\d)\.", lambda m: f"image_encoder.neck.{2 * int(m[1]) - 2}."),
     (r"^encoder\.neck_norm(\d)\.", lambda m: f"image_encoder.neck.{2 * int(m[1]) - 1}."),
+]
+# HiDDeN: a ConvBNRelu's conv and norm are its `layers.0` and `layers.1`
+_HIDDEN = [
+    (r"^hidden_encoder\.conv_bns_(\d+)\.", r"hidden_encoder.conv_bns.\1."),
+    (r"^hidden_decoder\.layers_(\d+)\.", r"hidden_decoder.layers.\1."),
+    (r"\.conv\.(kernel|bias)$", r".layers.0.\1"),
+    (r"\.norm\.(bn|gn|ln|rms)\.", ".layers.1."),
 ]
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
@@ -76,6 +102,35 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _up_rules(flat: dict) -> list:
+    """Each Upsample block's rule, by the form its subtree shows: a
+    transposed conv has a bias, the pixelshuffle conv is 1x1, the
+    nearest/bilinear conv 3x3. Transposed kernels are marked ``@T`` for
+    `_convert`."""
+    rules = []
+    for path, a in flat.items():
+        if not re.search(r"(^|\.)(up|up_\d+)\.conv\.kernel$", path):
+            continue
+        head = path[:-len(".conv.kernel")]
+        if f"{head}.conv.bias" in flat:
+            idx, leaf = (0, 1), "@T"
+        else:
+            idx, leaf = ((0, 1) if a.shape[:2] == (1, 1) else (2, 3)), ""
+        rules += [(rf"^{re.escape(head)}\.conv\.", f"{head}.upsample_block.{idx[0]}{leaf}."),
+                  (rf"^{re.escape(head)}\.norm\.", f"{head}.upsample_block.{idx[1]}.")]
+    return rules
+
+
+def _unet_conv(names, ndim) -> str:
+    """The UNet's conv_layer, from its first ResnetBlock conv's name and rank."""
+    for n in names:
+        if re.search(r"conv1\.(spatial|temporal)\.|double_conv\.0\.temp_conv\.", n):
+            return "conv2p1d"
+        if re.search(r"conv1\.conv\.kernel$|double_conv\.0\.conv\.weight$", n) and ndim(n) == 5:
+            return "conv3d"
+    return "conv2d"
+
+
 def _convert(flat: dict, rules: list) -> dict:
     sd = {}
     for path, a in flat.items():
@@ -83,11 +138,15 @@ def _convert(flat: dict, rules: list) -> dict:
         for pat, repl in rules:
             name = re.sub(pat, repl, name)
         head, _, leaf = name.rpartition(".")
-        if leaf == "kernel":
-            a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+        if head.endswith("@T"):   # flax ConvTranspose (kh, kw, I, O) -> (I, O, kh, kw)
+            head = head[:-2]
+            a = np.transpose(a, (2, 3, 0, 1)) if leaf == "kernel" else a
+        elif leaf == "kernel":
+            a = (np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4
+                 else np.transpose(a, (4, 3, 0, 1, 2)) if a.ndim == 5 else a.T)
         elif name.endswith((".grn.gamma", ".grn.beta")):
             a = a.reshape(1, 1, 1, -1)
-        elif re.search(r"\.double_conv\.[14]\.gamma$", name):   # ChanRMSNorm
+        elif re.search(r"\.(double_conv\.[14]|layers\.1)\.gamma$", name):   # ChanRMSNorm
             a = a.reshape(-1, 1, 1)
         name = f"{head}.{_LEAF.get(leaf, leaf)}"
         sd[name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
@@ -98,15 +157,30 @@ def _convert(flat: dict, rules: list) -> dict:
 
 def from_jax_variables(embedder_vars: dict, extractor_vars: dict) -> tuple[dict, dict]:
     """(embedder_vars, extractor_vars) of a videoseal_tpu model -> (embedder
-    state dict, extractor state dict) of the port's UnetEmbedder and its
-    ConvnextExtractor or SegmentationExtractor (chosen by the extractor's
-    parameter tree)."""
-    flat = _flatten(embedder_vars["params"]["unet"])
-    flat.update(_flatten(embedder_vars.get("batch_stats", {}).get("unet", {})))
-    emb = {f"unet.{k}": v for k, v in _convert(flat, _UNET).items()}
+    state dict, extractor state dict) of the port's UnetEmbedder or
+    HiddenEmbedder and its ConvnextExtractor, SegmentationExtractor or
+    HiddenExtractor (each chosen by its parameter tree)."""
+    params = embedder_vars["params"]
+    if "hidden_encoder" in params:
+        flat = _flatten(params)
+        flat.update(_flatten(embedder_vars.get("batch_stats", {})))
+        emb = _convert(flat, _HIDDEN)
+    else:
+        flat = _flatten(params["unet"])
+        flat.update(_flatten(embedder_vars.get("batch_stats", {}).get("unet", {})))
+        conv = _unet_conv(flat, lambda n: flat[n].ndim)
+        rules = _up_rules(flat) + _UNET_CONV[conv] + _UNET_BASE
+        emb = {f"unet.{k}": v for k, v in _convert(flat, rules).items()}
     ext = extractor_vars["params"]
-    vit = any(k.startswith("block_") for k in ext.get("encoder", {}))
-    return emb, _convert(_flatten(ext), (_VIT if vit else _CONVNEXT) + _PIXEL_DECODER)
+    flat = _flatten(ext)
+    enc = ext.get("encoder", {})
+    if "hidden_decoder" in ext:
+        rules = _HIDDEN
+    elif any(k.startswith("block_") for k in enc):
+        rules = _VIT
+    else:
+        rules = (_CONVNEXT_TEMPORAL if "down1_temporal" in enc else []) + _CONVNEXT
+    return emb, _convert(flat, _up_rules(flat) + rules + _PIXEL_DECODER)
 
 
 # the inverse substitutions, applied in order to a port name; a norm's leaf
@@ -115,34 +189,52 @@ _UNET_INV = [
     (r"^downs\.(\d+)\.", r"downs_\1."),
     (r"^bottleneck\.model\.(\d+)\.", r"bottleneck_\1."),
     (r"^ups\.(\d+)\.", r"ups_\1."),
+    (r"\.down\.downsample_block\.1\.", ".down.conv."),
     (r"\.double_conv\.1\.", ".norm1.@."),
     (r"\.double_conv\.4\.", ".norm2.@."),
-    (r"\.double_conv\.0\.", ".conv1.conv."),
-    (r"\.double_conv\.3\.", ".conv2.conv."),
-    (r"\.res_conv\.", ".res_conv.conv."),
-    (r"\.up\.upsample_block\.2\.", ".up.conv."),
-    (r"\.up\.upsample_block\.3\.", ".up.norm."),
     (r"^msg_processor\.msg_embeddings\.weight$", "msg_processor.msg_embeddings"),
 ]
+_UNET_CONV_INV = {
+    "conv2d": [(r"\.(double_conv\.[03]|res_conv)\.",
+                lambda m: f".{_RESNET_CONV_INV[m[1]]}.conv.")],
+    "conv3d": [(r"\.(double_conv\.[03]|res_conv)\.conv\.",
+                lambda m: f".{_RESNET_CONV_INV[m[1]]}.conv.")],
+    "conv2p1d": [(r"\.(double_conv\.[03]|res_conv)\.conv\.",
+                  lambda m: f".{_RESNET_CONV_INV[m[1]]}.spatial.conv."),
+                 (r"\.(double_conv\.[03])\.temp_conv\.",
+                  lambda m: f".{_RESNET_CONV_INV[m[1]]}.temporal.")],
+}
+_RESNET_CONV_INV = {v: k for k, v in _RESNET_CONV.items()}
 _CONVNEXT_INV = [
     (r"^convnext\.downsample_layers\.0\.0\.", "encoder.stem_conv."),
     (r"^convnext\.downsample_layers\.0\.1\.", "encoder.stem_norm."),
     (r"^convnext\.downsample_layers\.(\d)\.0\.", r"encoder.down\1_norm."),
-    (r"^convnext\.downsample_layers\.(\d)\.1\.", r"encoder.down\1_conv."),
+    (r"^convnext\.downsample_layers\.(\d)\.1\.temp_conv\.", r"encoder.down\1_temporal.conv."),
+    (r"^convnext\.downsample_layers\.(\d)\.1\.(conv\.)?", r"encoder.down\1_conv."),
     (r"^convnext\.stages\.(\d)\.(\d+)\.", r"encoder.stage\1_block\2."),
 ]
 _PIXEL_DECODER_INV = [
-    (r"^pixel_decoder\.output_upscaling\.(\d+)\.upsample_block\.2\.",
-     r"pixel_decoder.up_\1.conv."),
-    (r"^pixel_decoder\.output_upscaling\.(\d+)\.upsample_block\.3\.",
-     r"pixel_decoder.up_\1.norm."),
+    (r"^pixel_decoder\.output_upscaling\.(\d+)\.", r"pixel_decoder.up_\1."),
+]
+_UP_INV = [
+    (r"\.upsample_block\.2\.", ".conv."),
+    (r"\.upsample_block\.3\.", ".norm."),
+    (r"\.upsample_block\.0\.", ".conv."),
+    (r"\.upsample_block\.1\.", ".norm."),
 ]
 _VIT_INV = [
     (r"^image_encoder\.patch_embed\.proj\.", "encoder.patch_embed."),
-    (r"^image_encoder\.pos_embed$", "encoder.pos_embed"),
+    (r"^image_encoder\.pos_embed(_temporal)?$", r"encoder.pos_embed\1"),
     (r"^image_encoder\.blocks\.(\d+)\.", r"encoder.block_\1."),
+    (r"^image_encoder\.temp_blocks\.(\d+)\.", r"encoder.temp_block_\1."),
     (r"^image_encoder\.neck\.(\d)\.",
      lambda m: f"encoder.neck_{'conv' if int(m[1]) % 2 == 0 else 'norm'}{int(m[1]) // 2 + 1}."),
+]
+_HIDDEN_INV = [
+    (r"^hidden_encoder\.conv_bns\.(\d+)\.", r"hidden_encoder.conv_bns_\1."),
+    (r"^hidden_decoder\.layers\.(\d+)\.", r"hidden_decoder.layers_\1."),
+    (r"\.layers\.0\.", ".conv."),
+    (r"\.layers\.1\.", ".norm.@."),
 ]
 # the UNet's norm module in the JAX tree, by the card's `normalization`
 _NORM_NAMES = {"batch": "bn", "group": "gn", "layer": "ln", "rms": "rms"}
@@ -156,10 +248,13 @@ def _invert(sd: dict, rules: list, norm: str = "bn") -> tuple[dict, dict]:
         if leaf == "num_batches_tracked":
             continue
         a = t.detach().float().cpu().numpy()
+        # a transposed conv: an Upsample's first layer with a bias
+        transposed = (re.search(r"\.upsample_block\.0$", head) is not None
+                      and f"{head}.bias" in sd)
         path = name
         for pat, repl in rules:
             path = re.sub(pat, repl, path)
-        if ".@." in path:   # a UNet norm: BN keeps running statistics, RMS a gamma
+        if ".@." in path:   # a norm: BN keeps running statistics, RMS a gamma
             kind = ("bn" if f"{head}.running_mean" in sd
                     else "rms" if leaf == "gamma" else norm)
             path = path.replace(".@.", f".{kind}.")
@@ -167,13 +262,16 @@ def _invert(sd: dict, rules: list, norm: str = "bn") -> tuple[dict, dict]:
         if leaf in ("running_mean", "running_var"):
             stats[f"{jhead}.{leaf[len('running_'):]}"] = a
             continue
-        if leaf == "weight" and a.ndim >= 2:   # conv HWIO, Dense (in, out)
+        if leaf == "weight" and transposed:
+            leaf, a = "kernel", np.transpose(a, (2, 3, 0, 1))
+        elif leaf == "weight" and a.ndim >= 2:   # conv HWIO / THWIO, Dense (in, out)
             leaf = "kernel"
-            a = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
+            a = (np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4
+                 else np.transpose(a, (2, 3, 4, 1, 0)) if a.ndim == 5 else a.T)
         elif leaf in ("gamma", "beta") and (jhead.endswith(".grn") or ".rms" in jhead):
             a = a.reshape(-1)
         elif leaf == "weight" and (re.search(r"\.(bn|gn)$", jhead)
-                                   or re.search(r"\.block_\d+\.norm[12]$", jhead)):
+                                   or re.search(r"(block_\d+|temp_block)\.norm[12]$", jhead)):
             leaf = "scale"   # flax BatchNorm, GroupNorm and the ViT's LayerNorms
         params[f"{jhead}.{leaf}" if jhead else leaf] = np.array(a, np.float32, order="C")
     return params, stats
@@ -183,20 +281,35 @@ def _nest(flat: dict) -> dict:
     return unflatten_tree({k.replace(".", SEP): v for k, v in flat.items()})
 
 
-def to_jax_variables(embedder_sd: dict, extractor_sd: dict,
-                     unet_norm: str = "batch") -> tuple[dict, dict]:
+def to_jax_variables(embedder_sd: dict, extractor_sd: dict, unet_norm: str = "batch",
+                     extractor_norm: str | None = None) -> tuple[dict, dict]:
     """(embedder state dict, extractor state dict) of the port's modules ->
     (embedder_vars, extractor_vars) of a videoseal_tpu model: the inverse of
     `from_jax_variables`. `unet_norm` (the card's ``normalization``) names
-    the UNet's norms where the state dict cannot: group and layer norms both
-    hold a weight and a bias."""
-    emb = {k[len("unet."):]: v for k, v in embedder_sd.items() if k.startswith("unet.")}
-    params, stats = _invert(emb, _UNET_INV, _NORM_NAMES[unet_norm.split("_")[0]])
-    emb_vars = {"params": {"unet": _nest(params)}}
-    if stats:
-        emb_vars["batch_stats"] = {"unet": _nest(stats)}
-    vit = any(k.startswith("image_encoder.") for k in extractor_sd)
-    ext, _ = _invert(extractor_sd, (_VIT_INV if vit else _CONVNEXT_INV) + _PIXEL_DECODER_INV)
+    the UNet's or the HiDDeN encoder's norms where the state dict cannot:
+    group and layer norms both hold a weight and a bias; `extractor_norm`
+    (default: the same) the HiDDeN decoder's."""
+    norm = _NORM_NAMES[unet_norm.split("_")[0]]
+    if any(k.startswith("hidden_encoder.") for k in embedder_sd):
+        params, stats = _invert(embedder_sd, _HIDDEN_INV, norm)
+        emb_vars = {"params": _nest(params)}
+        if stats:
+            emb_vars["batch_stats"] = _nest(stats)
+    else:
+        emb = {k[len("unet."):]: v for k, v in embedder_sd.items() if k.startswith("unet.")}
+        conv = _unet_conv(emb, lambda n: emb[n].dim())
+        params, stats = _invert(emb, _UNET_CONV_INV[conv] + _UNET_INV + _UP_INV, norm)
+        emb_vars = {"params": {"unet": _nest(params)}}
+        if stats:
+            emb_vars["batch_stats"] = {"unet": _nest(stats)}
+    if any(k.startswith("hidden_decoder.") for k in extractor_sd):
+        rules = _HIDDEN_INV
+    elif any(k.startswith("image_encoder.") for k in extractor_sd):
+        rules = _VIT_INV
+    else:
+        rules = _CONVNEXT_INV
+    ext, _ = _invert(extractor_sd, rules + _PIXEL_DECODER_INV + _UP_INV,
+                     _NORM_NAMES[extractor_norm.split("_")[0]] if extractor_norm else norm)
     return emb_vars, {"params": _nest(ext)}
 
 
