@@ -159,6 +159,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      clip, every loss finite. Phase 19 alone: `python3 -c "import torch,
      chip_smoke as cs; smi, _ = cs.phase_device(); cs.phase_build();
      cs.phase_presets(torch.device('cuda', 0), smi)"`.
+ 20. the last models, videoseal_1.0's settings in bf16, random init from
+     seed 0, each written with save_npz and rebuilt from its card with that
+     checkpoint: (a) a VAE embedder (VAE_WIDTHS: the JAX module's defaults,
+     ch 64, 2 blocks a level, attention at 32 px) with the card's
+     extractor: embed of 32 float 1080p frames as images and detect (K6 1,
+     K2 18); (b) DVMark's embedder and extractor: embed of 32 float 1080p
+     frames as a video (K6 1) and detect, then detect of 40 frames, the last
+     chunk padded with frame 0 as the JAX package pads it; (c) a
+     dinov2_vits14 extractor (hooks 8-11): detect of 32 float 1080p frames;
+     each launch's first call per shape held against its plain version,
+     timed, and the float32 model on the card against the CPU's on 2 frames
+     (TF32 off); (d) the five baselines with scripted stand-ins at each
+     method's size and bits: embed, detect, extract_message of 8 float 1080p
+     frames, card against CPU, timed; (e) WmForger: train.main at
+     convnext_tiny's full width (256 px, batch 8; 4 steps with one ascent
+     step, 4 with gradient matching and the strength contrast: ms a step,
+     peak memory), optimize (50 SGD steps on one 256 image), one step of
+     every option and 3 optimize steps card against CPU. Phase 20 alone:
+     `python3 -c "import torch, chip_smoke as cs; smi, _ = cs.phase_device();
+     cs.phase_build(); cs.phase_last(torch.device('cuda', 0), smi)"`.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -176,6 +196,7 @@ NHWC embed launches nothing after K4.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -292,6 +313,22 @@ OPT_ALONE_ATOL = 1e-6
 # compared elementwise, pass the decoder's three upsample blocks (bf16 convs
 # and LayerNorms over 192, 96 and 48 channels) after the 18 blocks
 F_PRESET_PAD, PRESET_LOGIT_ATOL = 40, 5e-2
+# phase 20: float 1080p frames of the VAE, DVMark and DINO runs; the card
+# against the CPU in float32 with TF32 off on LAST_CPU_FRAMES of them, where
+# only the sums' order differs (cuDNN's and oneDNN's convolutions, the
+# matmuls): outputs in [0, 1] and the logits of a path without K2 within
+# LAST_F32_ATOL, a path through K2 (bf16 inside on both) within
+# PRESET_LOGIT_ATOL; WmForger's step: losses within TRAIN_LOG_RTOL, each
+# gradient within LAST_GRAD_RTOL of its tensor's largest (no BatchNorm)
+F_LAST, LAST_CPU_FRAMES, F_BASELINE = 32, 2, 8
+LAST_F32_ATOL, LAST_GRAD_RTOL = 1e-4, 1e-3
+# the VAE embedder's widths: the JAX module's defaults (ch_mult, z_channels,
+# double_z, resolution) and, as no published vae_* configuration is in the
+# repository, the run's choice of ch 64, 2 blocks a level and attention at
+# 32 px (1,024 tokens)
+VAE_WIDTHS = dict(ch=64, out_ch=3, num_res_blocks=2, resolution=256, z_channels=4,
+                  ch_mult=[1, 2, 4, 8], attn_resolutions=[32])
+WMF_STEPS, WMF_GM_STEPS, WMF_OPT_STEPS, WMF_BATCH = 4, 4, 50, 8
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -2603,8 +2640,8 @@ def phase_dist(dev, smi: str, phase17: dict) -> dict:
 
 
 class _Capture:
-    """Wraps the kernel wrappers where the pipeline calls them (K1 and K4 in
-    models/videoseal.py, K2 and K3 in kernels/convnext_fused.py) for one run
+    """Wraps the kernel wrappers where the pipeline calls them (K1, K4 and K6
+    in models/videoseal.py, K2 and K3 in kernels/convnext_fused.py) for one run
     and keeps each wrapper's first call per input shape, so that its
     kernel can be held against its plain version on the inputs the path
     gave it, after the run's counts are read."""
@@ -2613,7 +2650,8 @@ class _Capture:
         from videoseal_tpu_torch.kernels import convnext_fused as cf
         from videoseal_tpu_torch.models import videoseal as mv
         self.sites = [(cf, "convnext_block_fused", "K2"), (cf, "convnext_blocks_fused", "K3"),
-                      (mv, "fused_jnd_blend_up", "K4"), (mv, "fused_jnd_blend_planar", "K1")]
+                      (mv, "fused_jnd_blend_up", "K4"), (mv, "fused_jnd_blend_planar", "K1"),
+                      (mv, "fused_jnd_blend", "K6")]
         self.calls = {}
 
     def __enter__(self):
@@ -2633,12 +2671,13 @@ class _Capture:
 
 def hold_captured(tag: str, calls: dict) -> dict:
     """Each captured launch against its plain version: K2 and K3 at K2's
-    tolerance, K1's and K4's u8 frames at K1's rule."""
+    tolerance, K1's and K4's u8 frames at K1's rule, K6 at BLEND_ATOL."""
     from videoseal_tpu_torch.kernels import convnext_block as cb
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels import fused_planar as fp
     plain = {"K2": cb.convnext_block_plain, "K3": cb.convnext_blocks_plain,
-             "K4": fb.fused_jnd_blend_up_plain, "K1": fp.fused_jnd_blend_planar_plain}
+             "K4": fb.fused_jnd_blend_up_plain, "K1": fp.fused_jnd_blend_planar_plain,
+             "K6": fb.fused_jnd_blend_plain}
     worst = {}
     for (k, shapes), (fn, args, kw) in sorted(calls.items(), key=lambda c: str(c[0])):
         a, b = fn(*args, **kw), plain[k](*args, **kw)
@@ -2660,10 +2699,38 @@ def hold_captured(tag: str, calls: dict) -> dict:
             e = (a - b).abs()
             err = float(e.max())
             log(f"[{tag}] {k} at {shapes}: max abs err {err:.3e}")
-            if not bool(torch.isfinite(a).all()) or bool((e > K2_ATOL + K2_RTOL * b.abs()).any()):
+            tol = BLEND_ATOL if k == "K6" else K2_ATOL + K2_RTOL * b.abs()
+            if not bool(torch.isfinite(a).all()) or bool((e > tol).any()):
                 raise AssertionError(f"{tag}: {k} at {shapes} disagrees with its plain version")
         worst[k] = max(worst.get(k, 0.0), err)
     return worst
+
+
+def hold_padded_chunk(tag: str, model, f40: torch.Tensor, p40: torch.Tensor) -> dict:
+    """The last chunk of detect over F_PRESET_PAD frames (p40: 8 frames),
+    which a model that mixes frames runs with 24 copies of frame 0 (JAX's
+    pad) and a 2D model alone: its logits equal the extractor's on that
+    batch. Returns mixes_frames and how far the pad moves the logits."""
+    from videoseal_tpu_torch.modules.common import mixes_frames
+    from videoseal_tpu_torch.ops.resize import resize_bilinear
+    s = model.cfg.img_size
+    x40 = resize_bilinear(f40, s, s, precision=model.cfg.resize_precision)
+    if not f40.is_floating_point():
+        x40 = x40 * (1.0 / 255.0)
+    padded = torch.cat([x40[32:], x40[:1].expand(24, -1, -1, -1)])
+    dt = next(model.extractor.parameters()).dtype
+    with torch.no_grad():
+        direct = {n: model.extractor(b.to(dt)).float()[:8]
+                  for n, b in (("padded", padded), ("alone", x40[32:]))}
+    pad = mixes_frames(model.extractor)
+    same = torch.equal(direct["padded" if pad else "alone"], p40[32:])
+    moves = float((direct["padded"] - direct["alone"]).abs().max())
+    log(f"[{tag}] F={F_PRESET_PAD}, frames mixed {pad}: the last 8 frames' logits equal the "
+        f"extractor's on them {'padded with frame 0' if pad else 'alone'}: {same}; the pad "
+        f"moves them by {moves:.3e}")
+    if not same:
+        raise AssertionError(f"{tag}: the last chunk is not run as JAX runs it")
+    return {"mixes_frames": pad, "pad_moves": moves}
 
 
 def _preset_card(embedder: str, extractor: str) -> tuple[dict, dict]:
@@ -2793,24 +2860,12 @@ def phase_presets(dev, smi: str) -> dict:
             reset_counts()
             p40 = model.detect(f40)["preds"]
             add(check_counts(f"presets {tag} F={F_PRESET_PAD}", {"K2": 2 * blocks}))
-            from videoseal_tpu_torch.modules.common import mixes_frames
-            from videoseal_tpu_torch.ops.resize import resize_bilinear
-            x40 = resize_bilinear(f40, s, s, precision=model.cfg.resize_precision) * (1.0 / 255.0)
-            padded = torch.cat([x40[32:], x40[:1].expand(24, -1, -1, -1)])
-            with torch.no_grad():
-                direct = {n: model.extractor(b.to(torch.bfloat16)).float()[:8]
-                          for n, b in (("padded", padded), ("alone", x40[32:]))}
-            pad = mixes_frames(model.extractor)
-            same = torch.equal(direct["padded" if pad else "alone"], p40[32:])
-            r = {"worst": hold_captured(f"presets {tag}", cap.calls), "mixes_frames": pad,
-                 "pad_moves": float((direct["padded"] - direct["alone"]).abs().max())}
-            log(f"[presets] {tag}: F={F_PRESET_PAD}, frames mixed {pad}: the last 8 frames' "
-                f"logits equal the extractor's on them {'padded with frame 0' if pad else 'alone'}"
-                f": {same}; the pad moves them by {r['pad_moves']:.3e}")
-            if not same:
-                raise AssertionError(f"presets {tag}: the last chunk is not run as JAX runs it")
+            r = {"worst": hold_captured(f"presets {tag}", cap.calls),
+                 **hold_padded_chunk(f"presets {tag}", model, f40, p40)}
             # the grouped route over one chunk: K3 5, K2 16, equal to the single route
-            x32 = x40[:32].to(torch.bfloat16)
+            from videoseal_tpu_torch.ops.resize import resize_bilinear
+            x32 = (resize_bilinear(f40[:32], s, s, precision=model.cfg.resize_precision)
+                   * (1.0 / 255.0)).to(torch.bfloat16)
             ext_mod = model.extractor
             groups = [k for st in ext_mod.convnext.stages for k in block_groups(len(st), 4)]
             with _Capture() as gcap:
@@ -2843,7 +2898,7 @@ def phase_presets(dev, smi: str) -> dict:
                 del planar, pout
             log(f"{line} ({smi})")
             rec[tag] = r
-            del model, vid, preds, wm, f40, x40
+            del model, vid, preds, wm, f40
             torch.cuda.empty_cache()
 
         # models without a kernel on their path: every count stays 0
@@ -2922,6 +2977,319 @@ def _presets_train(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "wall_s": wall, "logs": logs,
             "video_logs": vlogs}
+
+
+class _BaselineEnc(torch.nn.Module):
+    """A stand-in for a baseline's TorchScript embedder: a residual from the
+    image and the message."""
+
+    def __init__(self, nbits: int):
+        super().__init__()
+        self.conv1 = torch.nn.Conv2d(3, 16, 3, padding=1)
+        self.msg = torch.nn.Linear(nbits, 16)
+        self.conv2 = torch.nn.Conv2d(16, 3, 3, padding=1)
+
+    def forward(self, x, m):
+        h = torch.relu(self.conv1(x) + self.msg(m)[:, :, None, None])
+        return x + 0.1 * torch.tanh(self.conv2(h))
+
+
+class _BaselineDec(torch.nn.Module):
+    """A stand-in for a baseline's TorchScript extractor: nbits logits, with
+    a detection logit before them where `with_detect`."""
+
+    def __init__(self, nbits: int, with_detect: bool):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 32, 3, stride=4)
+        self.head = torch.nn.Linear(32, nbits + int(with_detect))
+
+    def forward(self, x):
+        return self.head(torch.relu(self.conv(x)).mean(dim=(2, 3)))
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN's and cuBLAS's TF32 off inside, restored after."""
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _last_cards() -> dict:
+    """videoseal_1.0's card (256 bits, 256 px, step 4, chunk 32, jnd_1_1)
+    with (a) a VAE embedder, (b) DVMark's embedder and extractor, (c) a
+    dinov2_vits14 extractor (hooks 8-11, the card's pixel-decoder keys with
+    embed_dim 4 x 384)."""
+    from videoseal_tpu_torch.utils.cfg import load_card
+    cards = {k: load_card("videoseal_1.0") for k in ("vae", "dvmark", "dino")}
+    cards["vae"]["embedder"] = {"model": "vae", "params": {
+        "msg_processor": {"msg_processor_type": "binary+concat"},
+        "encoder": dict(VAE_WIDTHS, double_z=True), "decoder": dict(VAE_WIDTHS)}}
+    cards["dvmark"]["embedder"] = {"model": "dvmark", "params": {}}
+    cards["dvmark"]["extractor"] = {"model": "dvmark", "params": {}}
+    pd = dict(cards["dino"]["extractor"]["params"]["pixel_decoder"], embed_dim=4 * 384)
+    cards["dino"]["extractor"] = {"model": "dino2s_indices", "params": {
+        "encoder": {"name": "dinov2_vits14", "hook_indices": [8, 9, 10, 11]},
+        "pixel_decoder": pd}}
+    return cards
+
+
+def _last_model(dev, tmp: str, tag: str, card: dict):
+    """(model in float32 at random init from seed 0, rebuilt on the card
+    from the .npz that save_npz wrote of it, its weights the same; the
+    path)."""
+    import videoseal_tpu_torch as vt
+    src = vt.VideoSeal.from_card(card, device=dev, seed=0)
+    path = os.path.join(tmp, f"{tag}.npz")
+    vt.save_npz(path, src, args=card["args"])
+    model = vt.VideoSeal.from_card(card, checkpoint=path, device=dev)
+    if not all(torch.equal(model.state_dict()[k], v) for k, v in src.state_dict().items()):
+        raise AssertionError(f"last {tag}: {path} did not load back as the model it holds")
+    del src
+    return model, path
+
+
+def _last_card_vs_cpu(tag: str, model, card: dict, path: str, frames: torch.Tensor,
+                      embed: bool, video: bool, through_k2: bool) -> dict:
+    """The float32 model on the card against the CPU's from the same .npz,
+    TF32 off, on LAST_CPU_FRAMES float frames: the embed output within
+    LAST_F32_ATOL, the logits of the card's output within LAST_F32_ATOL (or
+    PRESET_LOGIT_ATOL through K2, no bit decision flipped beyond it)."""
+    import videoseal_tpu_torch as vt
+    cpu = vt.VideoSeal.from_card(card, checkpoint=path, device="cpu")
+    x = frames[:LAST_CPU_FRAMES]
+    msgs = model.get_random_msg(1 if video else x.shape[0])
+    rec = {}
+    with tf32_off():
+        if embed:
+            g = model.embed(x, msgs=msgs, is_video=video)["imgs_w"]
+            c = cpu.embed(x.cpu(), msgs=msgs.cpu(), is_video=video)["imgs_w"]
+            rec["embed_max"] = float((g.cpu() - c).abs().max())
+            x = g
+        gp = model.detect(x)["preds"].cpu()
+        cp = cpu.detect(x.cpu())["preds"]
+    tol = PRESET_LOGIT_ATOL if through_k2 else LAST_F32_ATOL
+    rec["logit_max"] = float((gp - cp).abs().max())
+    sure = cp[:, 1:].abs() > tol
+    rec["flips"] = int(((gp[:, 1:] > 0) != (cp[:, 1:] > 0))[sure].sum())
+    emb = (f"embed max diff {rec['embed_max']:.3e} (tolerance {LAST_F32_ATOL}), "
+           if embed else "")
+    log(f"[last] {tag}, {LAST_CPU_FRAMES} frames, card vs CPU (float32, TF32 off): {emb}logits "
+        f"{rec['logit_max']:.3e} (tolerance {tol}), bit decisions flipped beyond it "
+        f"{rec['flips']}")
+    if rec.get("embed_max", 0.0) > LAST_F32_ATOL or rec["logit_max"] > tol or rec["flips"]:
+        raise AssertionError(f"last {tag}: card and CPU disagree")
+    return rec
+
+
+def _last_baselines(dev, tmp: str, smi: str) -> dict:
+    """Each baseline method with scripted stand-ins at its size and bits
+    (every other one with a detection logit): embed, detect and
+    extract_message of F_BASELINE float 1080p frames on the card, against
+    the CPU on LAST_CPU_FRAMES of them (TF32 off); embed+detect timed."""
+    from videoseal_tpu_torch.models import baselines as bl
+    g = torch.Generator(device=dev).manual_seed(21)
+    frames = torch.rand((F_BASELINE, H, W, 3), generator=g, device=dev)
+    out = {}
+    for i, method in enumerate(sorted(bl._BASELINE_SPECS)):
+        nbits = bl._DEFAULT_BITS[method]
+        torch.manual_seed(i)
+        ep, dp = os.path.join(tmp, f"{method}_enc.pt"), os.path.join(tmp, f"{method}_dec.pt")
+        torch.jit.script(_BaselineEnc(nbits)).save(ep)
+        torch.jit.script(_BaselineDec(nbits, i % 2 == 0)).save(dp)
+        model = bl.build_baseline(f"baseline/{method}", ep, dp, device=dev)
+        msgs = model.get_random_msg(F_BASELINE)
+        reset_counts()
+        emb = model.embed(frames, msgs=msgs)
+        preds = model.detect(emb["imgs_w"])["preds"]
+        bits = model.extract_message(emb["imgs_w"])
+        check_counts(f"last baseline/{method}", {})
+        if (tuple(emb["imgs_w"].shape) != (F_BASELINE, H, W, 3)
+                or tuple(preds.shape) != (F_BASELINE, nbits + 1)
+                or tuple(bits.shape) != (1, nbits) or not bool(torch.isfinite(preds).all())
+                or torch.equal(emb["imgs_w"], frames)):
+            raise AssertionError(f"baseline/{method}: wrong shape, not finite or unchanged")
+        cpu = bl.build_baseline(f"baseline/{method}", ep, dp, device="cpu")
+        x, m = frames[:LAST_CPU_FRAMES], msgs[:LAST_CPU_FRAMES]
+        with tf32_off():
+            gw = model.embed(x, msgs=m)["imgs_w"]
+            cw = cpu.embed(x.cpu(), msgs=m.cpu())["imgs_w"]
+            err = max(float((gw.cpu() - cw).abs().max()),
+                      float((model.detect(gw)["preds"].cpu() - cpu.detect(gw.cpu())["preds"])
+                            .abs().max()))
+        ms = cuda_ms(lambda: model.detect(model.embed(frames, msgs=msgs)["imgs_w"]))
+        log(f"[last] baseline/{method} ({bl._BASELINE_SPECS[method]['img_size']} px, {nbits} "
+            f"bits): embed+detect of {F_BASELINE} float 1080p frames {ms:.2f} ms; card vs CPU "
+            f"max diff {err:.3e} (tolerance {LAST_F32_ATOL}) ({smi})")
+        if err > LAST_F32_ATOL:
+            raise AssertionError(f"baseline/{method}: card and CPU disagree")
+        out[method] = {"ms": ms, "cpu_max": err}
+    return out
+
+
+def _last_wmforger(dev, tmp: str, smi: str) -> dict:
+    """wmforger.train.main at convnext_tiny's full width (img 256, batch 8):
+    WMF_STEPS steps with one ascent step, WMF_GM_STEPS with gradient
+    matching and the strength contrast; ms a step after the first and peak
+    memory; optimize (WMF_OPT_STEPS SGD steps) on one 256 image; one step of
+    every option at batch 2 and 3 optimize steps on the card against the
+    CPU (float32, TF32 off)."""
+    import random
+
+    from videoseal_tpu_torch.data.datasets import SyntheticImages
+    from videoseal_tpu_torch.models.videoseal import init_weights
+    from videoseal_tpu_torch.wmforger import generators, optimize_image as wopt
+    from videoseal_tpu_torch.wmforger import train as wtrain
+    common = ["--synthetic", "1", "--batch_size", str(WMF_BATCH), "--img_size", "256"]
+    rec = {}
+    for tag, flags in (("perturb", ["--steps", str(WMF_STEPS), "--n_perturbation_steps", "1"]),
+                       ("grad_matching", ["--steps", str(WMF_GM_STEPS), "--grad_matching", "1",
+                                          "--watermark_strength_contrasting", "1"])):
+        random.seed(0)
+        np.random.seed(0)
+        ckpt = os.path.join(tmp, f"wmforger_{tag}.npz")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, step_ms = wtrain.main(common + flags + ["--output", ckpt])
+        wall = time.perf_counter() - t0
+        check_counts(f"last wmforger {tag}", {})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        after = float(np.median(step_ms[1:]))
+        log(f"[last] wmforger.train.main ({tag}): {len(step_ms)} steps at batch {WMF_BATCH}, "
+            f"256 px, convnext_tiny's full width: step ms {[round(v, 2) for v in step_ms]}, "
+            f"{after:.2f} ms a step after the first, peak {peak:.2f} GiB, {wall:.1f} s "
+            f"({smi})")
+        if not all(math.isfinite(v) for v in step_ms):
+            raise AssertionError(f"wmforger {tag}: a step did not run")
+        rec[tag] = {"step_ms": step_ms, "ms_after_first": after, "peak_gib": peak, "wall_s": wall}
+    model = wopt.load_preference_model(ckpt, dev)
+    img = torch.as_tensor(SyntheticImages(1, 256)[0][0], device=dev)
+    reset_counts()
+    opt = wopt.optimize(img, model, WMF_OPT_STEPS)
+    check_counts("last wmforger optimize", {})
+    cleaned, wm = wopt.get_watermark(img, opt)
+    rec["optimize_ms"] = cuda_ms(lambda: wopt.optimize(img, model, WMF_OPT_STEPS), reps=1)
+    log(f"[last] optimize: {WMF_OPT_STEPS} steps on one 256 image {rec['optimize_ms']:.2f} ms, "
+        f"the watermark's largest {float(wm.abs().max()):.4f} ({smi})")
+    if not bool(torch.isfinite(cleaned).all()):
+        raise AssertionError("wmforger optimize: not finite")
+
+    # the card against the CPU: one step of every option, 3 optimize steps
+    mods = {}
+    for k, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = wtrain.build_preference_model(256, [3, 3, 9, 3], [96, 192, 384, 768])
+        init_weights(m, torch.Generator().manual_seed(0))
+        mods[k] = m.to(d)
+    random.seed(1)
+    np.random.seed(1)
+    imgs = torch.as_tensor(np.stack([SyntheticImages(2, 256)[i][0] for i in range(2)]))
+    batch = {"imgs": imgs, "imgs_w": generators.build_generator("waves").embed(imgs)["imgs_w"]}
+    draws = wtrain.sample_draws(torch.Generator().manual_seed(2), 1, imgs.shape, "cpu",
+                                use_rand_perturbation=True)
+    logs, grads, o = {}, {}, {}
+    with tf32_off():
+        for k, m in mods.items():
+            d = next(m.parameters()).device
+            o[k] = wopt.optimize(img.to(d), m, 3).cpu()
+            step = wtrain.make_train_step(m, "bt_nll", torch.optim.AdamW(m.parameters()),
+                                          n_perturbation_steps=1, grad_matching=True,
+                                          strength_contrasting=True)
+            logs[k] = step({n: v.to(d) for n, v in batch.items()},
+                           dict(draws, init=draws["init"].to(d)))
+            grads[k] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+    # the losses (acc and ranking count signs, which a logit near 0 may flip)
+    log_err = max(abs(float(logs["card"][n]) - float(v)) / max(abs(float(v)), 1e-6)
+                  for n, v in logs["cpu"].items() if n.startswith("loss"))
+    grad_err = max(float((grads["card"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-12)
+                   for n, g in grads["cpu"].items())
+    opt_err = float((o["card"] - o["cpu"]).abs().max())
+    rec["cpu"] = {"log_rel": log_err, "grad_rel": grad_err, "optimize_max": opt_err}
+    log(f"[last] wmforger, card vs CPU (float32, TF32 off, batch 2, every option): logs "
+        f"{log_err:.3e} relative (tolerance {TRAIN_LOG_RTOL}), gradients {grad_err:.3e} of "
+        f"each tensor's largest (tolerance {LAST_GRAD_RTOL}); optimize, 3 steps: {opt_err:.3e} "
+        f"(tolerance {LAST_F32_ATOL})")
+    if log_err > TRAIN_LOG_RTOL or grad_err > LAST_GRAD_RTOL or opt_err > LAST_F32_ATOL:
+        raise AssertionError("wmforger: card and CPU disagree")
+    return rec
+
+
+def phase_last(dev, smi: str) -> dict:
+    """The last models at full width with videoseal_1.0's settings, random
+    init from seed 0, each built through a .npz: (a) the VAE embedder
+    (float embed of F_LAST 1080p frames as images, detect: K6 1, K2 18),
+    (b) DVMark's embedder and extractor (embed of F_LAST float 1080p frames
+    as a video: K6 1; detect, then a 40-frame detect whose last chunk is
+    padded with frame 0), (c) the DINO extractor (detect of F_LAST float
+    1080p frames), each in bf16 with its launches held against their plain
+    versions, timed, and in float32 on the card against the CPU; (d) the
+    five baselines; (e) WmForger's training and forging tool."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_last_")
+    rec = {"launches": {k: 0 for k in kernel_wrappers()}}
+
+    def add(got):
+        rec["launches"] = {k: rec["launches"][k] + got[k] for k in got}
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    frames = torch.rand((F_LAST, H, W, 3), generator=g, device=dev)
+    cards = _last_cards()
+    try:
+        for tag in ("vae", "dvmark", "dino"):
+            card = cards[tag]
+            f32, path = _last_model(dev, tmp, tag, card)
+            model = f32.with_dtype("bfloat16")
+            embeds = tag != "dino"
+            video = tag == "dvmark"
+            blocks = 18 if tag == "vae" else 0
+            msgs = model.get_random_msg(1 if video else F_LAST)
+            with _Capture() as cap:
+                reset_counts()
+                wm = model.embed(frames, msgs=msgs, is_video=video)["imgs_w"] if embeds else frames
+                preds = model.detect(wm)["preds"]
+                add(check_counts(f"last {tag}", {"K6": int(embeds), "K2": blocks}))
+            if (tuple(wm.shape) != (F_LAST, H, W, 3) or tuple(preds.shape) != (F_LAST, 257)
+                    or not bool(torch.isfinite(preds).all())
+                    or (embeds and torch.equal(wm, frames))):
+                raise AssertionError(f"last {tag}: output of the wrong shape, not finite or "
+                                     "unchanged")
+            r = {"worst": hold_captured(f"last {tag}", cap.calls)}
+            if video:
+                f40 = torch.cat([wm, wm[:F_PRESET_PAD - F_LAST]])
+                reset_counts()
+                p40 = model.detect(f40)["preds"]
+                add(check_counts(f"last {tag} F={F_PRESET_PAD}", {}))
+                r.update(hold_padded_chunk(f"last {tag}", model, f40, p40))
+                r["detect40_ms"] = cuda_ms(lambda: model.detect(f40))
+            if embeds:
+                r["ms"] = cuda_ms(lambda: model.detect(
+                    model.embed(frames, msgs=msgs, is_video=video)["imgs_w"]))
+                what = f"embed ({'video' if video else 'images'})+detect"
+            else:
+                r["ms"] = cuda_ms(lambda: model.detect(frames))
+                what = "detect"
+            log(f"[last] {tag}: {what} of {F_LAST} float 1080p frames {r['ms']:.2f} ms"
+                + (f", detect of {F_PRESET_PAD} {r['detect40_ms']:.2f} ms" if video else "")
+                + f" ({smi})")
+            del model
+            r["cpu_vs_card"] = _last_card_vs_cpu(tag, f32, card, path, frames, embeds, video,
+                                                 through_k2=tag == "vae")
+            rec[tag] = r
+            del f32, wm, preds
+            torch.cuda.empty_cache()
+        rec["baselines"] = _last_baselines(dev, tmp, smi)
+        del frames
+        torch.cuda.empty_cache()
+        rec["wmforger"] = _last_wmforger(dev, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _is_elementwise(name: str) -> bool:
@@ -3029,13 +3397,14 @@ def main() -> int:
     rec["train"] = phase_train(dev, smi)
     rec["dist"] = phase_dist(dev, smi, rec["train"])
     rec["presets"] = phase_presets(dev, smi)
+    rec["last"] = phase_last(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
-                                            "attacks", "train", "dist", "presets")]
+                                            "attacks", "train", "dist", "presets", "last")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

@@ -194,8 +194,13 @@ def test_pth_dict_args(tmp_path):
 
 
 def test_baseline_raises():
-    with pytest.raises(NotImplementedError, match="1.9"):
-        vt.load("baseline/trustmark", device="cpu")
+    """A baseline by name alone raises FileNotFoundError, as the JAX
+    package's does: its TorchScript files are not in the repository
+    (models/baselines.build_baseline takes their paths)."""
+    import videoseal_tpu as vs
+    for load in (vs.load, lambda n: vt.load(n, device="cpu")):
+        with pytest.raises(FileNotFoundError, match="TorchScript"):
+            load("baseline/trustmark")
 
 
 def test_other_config_file_raises(tmp_path):

@@ -121,16 +121,30 @@ class TestCards:
         assert VideoSeal.from_card(tiny_card(), device="cpu").device.type == "cpu"
 
     def test_unported_cards_raise(self):
-        """Every card builds now (tests/test_torch_cards.py holds them against
-        the JAX package); an extractor still unported (DVMark, DINO) raises,
-        pointing at the roadmap. The hidden extractor is ported (its preset
-        builds; tests/test_torch_presets.py holds it against JAX's)."""
+        """videoseal_0.0's card with the DINO or the DVMark extractor, which
+        the port once refused, builds, and its extractor matches the JAX
+        package's on the same weights (at 28 px: the JAX oracle on the CPU).
+        The hidden extractor's preset builds too (tests/test_torch_presets.py
+        holds it against JAX's)."""
+        import jax
+        import jax.numpy as jnp
+        from torch_port import jax_random_vars, to_np
+
+        from videoseal_tpu.models.extractor import build_extractor as jbuild_extractor
         from videoseal_tpu_torch import presets
+        from videoseal_tpu_torch.utils.convert import extractor_from_jax
+        x = np.random.default_rng(0).uniform(0, 1, (2, 28, 28, 3)).astype(np.float32)
         for model in ("dino2s_indices", "dvmark"):
             card = copy.deepcopy(load_card("videoseal_0.0"))
             card["extractor"] = {"model": model, "params": {}}
-            with pytest.raises(NotImplementedError, match="ROADMAP.md 1.9"):
-                VideoSeal.from_card(card, device="cpu")
+            ext = VideoSeal.from_card(card, device="cpu").extractor
+            jm = jbuild_extractor(model, {}, 256, 96).module
+            v = jax_random_vars(jm, jnp.zeros((1, 28, 28, 3)))
+            ext.load_state_dict(extractor_from_jax(v))
+            with torch.no_grad():
+                got = to_np(ext(torch.from_numpy(x)))
+            np.testing.assert_allclose(got, np.asarray(jax.jit(jm.apply)(v, x)), atol=5e-5,
+                                       rtol=1e-4)
         card = copy.deepcopy(load_card("videoseal_0.0"))
         card["extractor"] = {"model": "hidden", "params": presets.EXTRACTOR["hidden"]}
         assert VideoSeal.from_card(card, device="cpu").extractor_spec.nbits == 96

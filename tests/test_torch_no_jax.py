@@ -3,7 +3,8 @@ or pandas: the package must import and run its planar and NHWC paths,
 loading by path, streaming, the metrics, the attack simulator, the evals,
 the losses and a few training steps (with lamb, adafactor and the sharded
 checkpoint; and the training entry point's --help), the temporal, pixelwise
-and HiDDeN models and the inflation script, and import every
+and HiDDeN models and the inflation script, the VAE, DVMark and DINO models,
+the TorchScript baselines and WmForger, and import every
 other module, without them (and without cv2, which the streaming path and the exact
 codecs import only where they need it)."""
 
@@ -151,6 +152,48 @@ assert tuple(hm.detect(hm.embed(clip[:2])["imgs_w"])["preds"].shape) == (2, 17)
 inflate.main([ckpt, os.path.join(tmp, "inflated.npz")])
 assert "temporal" in checkpoint.load_npz(os.path.join(tmp, "inflated.npz"))[0]["params"][
     "unet"]["inc"]["conv1"]
+
+# the VAE, DVMark and DINO models, the baselines, utils/{image,layout}, WmForger
+from videoseal_tpu_torch.models import baselines
+from videoseal_tpu_torch.utils import image, layout
+from videoseal_tpu_torch.wmforger import optimize_image, train as wtrain
+vae = {"ch": 16, "out_ch": 3, "num_res_blocks": 1, "resolution": 32, "ch_mult": [1, 2],
+       "attn_resolutions": [16]}
+for emb, ext, s in ((("vae_small", {"encoder": dict(vae, z_channels=4),
+                                   "decoder": dict(vae, tanh_out=True)}),
+                     tiny_card(img_size=64)["extractor"], 64),
+                    (("dvmark", {}), {"model": "dvmark", "params": {}}, 16),
+                    ((tc["embedder"]["model"], tc["embedder"]["params"]),
+                     {"model": "dino2s", "params": {"pixel_decoder": {"upscale_stages": [1]}}},
+                     28)):
+    c = dict(tc, args=dict(tc["args"], img_size_proc=s),
+             embedder={"model": emb[0], "params": emb[1]}, extractor=ext)
+    m = vt.VideoSeal.from_card(c, device="cpu")
+    w = m.embed(clip[:3].float() / 255, is_video=True)["imgs_w"]
+    assert tuple(m.detect(w)["preds"].shape) == (3, 17), emb[0]
+vt.save_npz(os.path.join(tmp, "dv.npz"), m)
+class Dec(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(3, 48)
+    def forward(self, x):
+        return self.lin(x.mean(dim=(2, 3)))
+class Enc(torch.nn.Module):
+    def forward(self, x, m):
+        return x + 0.01 * m.mean()
+x128 = torch.rand(2, 3, 128, 128)   # traced: a script run by -c has no source to script
+torch.jit.trace(Enc(), (x128, torch.ones(2, 48))).save(os.path.join(tmp, "e.pt"))
+torch.jit.trace(Dec(), x128).save(os.path.join(tmp, "d.pt"))
+b = baselines.build_baseline("baseline/hidden", os.path.join(tmp, "e.pt"),
+                             os.path.join(tmp, "d.pt"), device="cpu")
+assert tuple(b.extract_message(b.embed(clip[:2].float() / 255)["imgs_w"]).shape) == (1, 48)
+assert tuple(layout.nhwc_to_nchw(clip).shape) == (6, 3, 64, 96)
+assert image.median_filter(clip[:1].float(), 3).shape == clip[:1].shape
+ck = os.path.join(tmp, "wmforger.npz")
+wtrain.main(["--device", "cpu", "--tiny", "1", "--synthetic", "1", "--steps", "1",
+             "--batch_size", "2", "--img_size", "32", "--output", ck])
+pm = optimize_image.load_preference_model(ck, "cpu")
+assert optimize_image.optimize(torch.rand(32, 32, 3), pm, num_steps=2).shape == (32, 32, 3)
 print("OK")
 """
 

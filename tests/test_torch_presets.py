@@ -329,16 +329,40 @@ def test_every_preset_builds_with_jax_tree(kind, name):
     assert shapes(got) == shapes(want)
 
 
+# the models the port once refused, at small widths (no preset names them;
+# tests/test_torch_vae_dvmark_dino.py holds each part in depth)
+_VAE_WIDTHS = {"ch": 16, "out_ch": 3, "num_res_blocks": 1, "resolution": 32, "ch_mult": [1, 2],
+               "attn_resolutions": [16]}
+_ONCE_REFUSED = {
+    "vae_small": {"msg_processor": {"msg_processor_type": "binary+concat"},
+                  "encoder": dict(_VAE_WIDTHS, z_channels=4, double_z=True),
+                  "decoder": dict(_VAE_WIDTHS, z_channels=2 * NBITS + 4, tanh_out=True)},
+    "dvmark": {},
+    "dino2s_indices": {"encoder": {"name": "dinov2_vits14", "hook_indices": [0, -1]},
+                       "pixel_decoder": {"upscale_stages": [1], "sigmoid_output": False}},
+}
+
+
 @pytest.mark.parametrize("kind,name", [("embedder", "vae_small"), ("embedder", "dvmark"),
                                        ("extractor", "dino2s_indices"),
                                        ("extractor", "dvmark")])
 def test_unported_models_raise(kind, name):
-    """The VAE, DVMark and DINO models still raise, citing the roadmap."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.9"):
-        if kind == "embedder":
-            build_embedder(name, {}, NBITS)
-        else:
-            build_extractor(name, {}, 256, NBITS)
+    """The VAE, DVMark and DINO models, which the port once refused (citing
+    ROADMAP.md 1.9), build and match the linen modules at 32 px."""
+    cfg = _ONCE_REFUSED[name]
+    if kind == "embedder":
+        jspec, v, spec = _embedder_pair(name, cfg)
+        x, m = _imgs(3), _msgs(3)
+        want = np.asarray(jax.jit(jspec.module.apply)(v, jnp.asarray(x), jnp.asarray(m)))
+        with torch.no_grad():
+            got = spec.module(_t(x), torch.as_tensor(m))
+    else:
+        jspec, v, spec = _extractor_pair(name, cfg)
+        x = _imgs(3)
+        want = np.asarray(jax.jit(jspec.module.apply)(v, jnp.asarray(x)))
+        with torch.no_grad():
+            got = spec.module(_t(x))
+    np.testing.assert_allclose(to_np(got), want, atol=F32_ATOL, rtol=1e-4)
 
 
 # -- cards built from the presets -----------------------------------------------------

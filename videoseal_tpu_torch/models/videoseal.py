@@ -272,10 +272,14 @@ def aggregate_message(preds: torch.Tensor, aggregation: str = "avg") -> torch.Te
 def init_weights(module: torch.nn.Module, generator: torch.Generator) -> None:
     """Random init from `generator`: conv/linear weights and biases
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the message table N(0, 1), norms at
-    identity, GRN at zero (the JAX package's initializers for those)."""
+    identity, GRN at zero (the JAX package's initializers for those); a
+    module with its own `init_weights(generator)` (DINO's position table)
+    draws the rest."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            if hasattr(m, "init_weights"):
+                m.init_weights(generator)
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
                 bound = m.weight[0].numel() ** -0.5
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:

@@ -75,3 +75,44 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     y = torch.einsum("Hh,...hwc->...Hwc", mh, y)
     y = torch.einsum("Ww,...hwc->...hWc", mw, y)
     return y.to(dt)
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) bicubic resampling matrix with torch's
+    ``mode="bicubic"`` semantics (align_corners=False, no antialias): Keys'
+    cubic kernel at a=-0.75, half-pixel centres, border taps clamped."""
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    a = -0.75
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    center = scale * (dst + 0.5) - 0.5
+    base = np.floor(center).astype(np.int64)
+    frac = center - base
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+
+    def keys(t):
+        t = np.abs(t)
+        return np.where(
+            t <= 1.0, ((a + 2) * t - (a + 3)) * t * t + 1,
+            np.where(t < 2.0, (((t - 5) * t + 8) * t - 4) * a, 0.0))
+
+    for k in range(-1, 3):
+        w = keys(frac - k)
+        cols = np.clip(base + k, 0, in_size - 1)
+        np.add.at(mat, (np.arange(out_size), cols), w)
+    return mat.astype(np.float32)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bicubic resize of (..., H, W, C) to (..., out_h, out_w, C) in float32,
+    returned in x's dtype (DINOv2's position-embedding grid)."""
+    h, w = x.shape[-3], x.shape[-2]
+    if (h, w) == (out_h, out_w):
+        return x
+    mh = torch.as_tensor(_cubic_matrix(h, out_h), device=x.device)
+    mw = torch.as_tensor(_cubic_matrix(w, out_w), device=x.device)
+    y = torch.einsum("Hh,...hwc->...Hwc", mh, x.float())
+    y = torch.einsum("Ww,...hwc->...hWc", mw, y)
+    return y.to(x.dtype)

@@ -1,9 +1,9 @@
 """Model cards and model construction, counterpart of ``videoseal_tpu/utils/cfg.py``.
 
-`load(name_or_path)` takes a card name (``cards.py``), or a checkpoint path
-(``.npz`` with an ``__args__`` blob, ``.pth``/``.pt`` with ``args``) from
-whose embedded training args it rebuilds the card, with the embedder and
-extractor presets of ``presets.py``. Nothing is downloaded.
+`load(name_or_path)` takes a card name (``cards.py``), 'baseline/<method>'
+or a checkpoint path (``.npz`` with an ``__args__`` blob, ``.pth``/``.pt``
+with ``args``) from whose embedded training args it rebuilds the card, with
+the embedder and extractor presets of ``presets.py``. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -93,10 +93,14 @@ def get_config_from_checkpoint(ckpt_path: str) -> dict:
 
 
 def setup_model_from_checkpoint(ckpt_path: str, device="cuda", seed: int = 0):
-    """Build from a card name or a checkpoint path with embedded args."""
+    """Build from 'baseline/<method>', a card name or a checkpoint path with
+    embedded args. A baseline needs its TorchScript files: by name alone it
+    raises FileNotFoundError (``models/baselines.build_baseline`` takes the
+    paths)."""
     if "baseline" in ckpt_path:
-        raise NotImplementedError(f"{ckpt_path!r}: the baseline methods "
-                                  "(models/baselines.py) are not ported yet (ROADMAP.md 1.9)")
+        from ..models.baselines import build_baseline
+
+        return build_baseline(ckpt_path, device=device)
     if not ckpt_path.endswith(_CKPT_EXTS) and "/" not in ckpt_path:
         return setup_model_from_model_card(ckpt_path, device=device, seed=seed)
     from ..models.videoseal import VideoSeal

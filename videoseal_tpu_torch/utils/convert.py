@@ -18,13 +18,16 @@ writes what it returns):
   GRN gamma/beta (D,)                  -> (1, 1, 1, D)
   ViT pos_embed, rel_pos_h / rel_pos_w -> as they are
 
-Each module's rules follow its parameter tree: ``unet`` or
-``hidden_encoder`` for the embedder (the UNet's conv_layer from its first
-conv: ``spatial``/``temporal`` subtrees are conv2p1d, a 5-D kernel
-conv3d), ``encoder.block_*`` the SAM ViT of videoseal_0.0,
-``encoder.stage*`` a ConvNeXtV2 (temporal where ``down1_temporal`` is
-present), ``hidden_decoder`` HiDDeN's; each Upsample block's form from its
-subtree (a bias marks the transposed conv, a 1x1 kernel pixelshuffle).
+Each module's rules follow its parameter tree: ``unet``,
+``hidden_encoder``, ``dvmark_encoder`` or a VAE's ``encoder`` and
+``decoder`` for the embedder (the UNet's conv_layer from its first conv:
+``spatial``/``temporal`` subtrees are conv2p1d, a 5-D kernel conv3d),
+``encoder.block_*`` the SAM ViT of videoseal_0.0, ``encoder.cls_token``
+DINOv2, ``encoder.stage*`` a ConvNeXtV2 (temporal where ``down1_temporal``
+is present), ``hidden_decoder`` HiDDeN's, ``dvmark_decoder`` DVMark's; each
+Upsample block's form from its subtree (a bias marks the transposed conv, a
+1x1 kernel pixelshuffle). `embedder_from_jax` / `extractor_from_jax` (and
+their inverses) convert one module alone.
 """
 
 from __future__ import annotations
@@ -86,6 +89,23 @@ _HIDDEN = [
     (r"^hidden_decoder\.layers_(\d+)\.", r"hidden_decoder.layers.\1."),
     (r"\.conv\.(kernel|bias)$", r".layers.0.\1"),
     (r"\.norm\.(bn|gn|ln|rms)\.", ".layers.1."),
+]
+# the VAE embedder: taming's names (``down.{level}.block.{i}``, ``mid.attn_1``, ...)
+_VAE = [
+    (r"\.(down|up)_(\d+)_(block|attn)_(\d+)\.", r".\1.\2.\3.\4."),
+    (r"\.(down|up)_(\d+)_(downsample|upsample)\.", r".\1.\2.\3.conv."),
+    (r"\.mid_(block_1|attn_1|block_2)\.", r".mid.\1."),
+    (r"^msg_processor\.msg_embeddings$", "msg_processor.msg_embeddings.weight"),
+]
+# DVMark: the JAX names, each list of convs a ModuleList
+_DVMARK = [(r"\.(transform|emb[123])_(\d+)\.", r".\1.\2.")]
+# the DINO extractor: DINOv2's names
+_DINO = [
+    (r"^encoder\.patch_embed\.", "image_encoder.patch_embed.proj."),
+    (r"^encoder\.blocks_(\d+)\.ls([12])$", r"image_encoder.blocks.\1.ls\2.gamma"),
+    (r"^encoder\.blocks_(\d+)\.mlp_fc([12])\.", r"image_encoder.blocks.\1.mlp.fc\2."),
+    (r"^encoder\.blocks_(\d+)\.", r"image_encoder.blocks.\1."),
+    (r"^encoder\.", "image_encoder."),
 ]
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
@@ -155,32 +175,48 @@ def _convert(flat: dict, rules: list) -> dict:
     return sd
 
 
-def from_jax_variables(embedder_vars: dict, extractor_vars: dict) -> tuple[dict, dict]:
-    """(embedder_vars, extractor_vars) of a videoseal_tpu model -> (embedder
-    state dict, extractor state dict) of the port's UnetEmbedder or
-    HiddenEmbedder and its ConvnextExtractor, SegmentationExtractor or
-    HiddenExtractor (each chosen by its parameter tree)."""
+def embedder_from_jax(embedder_vars: dict) -> dict:
+    """A videoseal_tpu embedder's variables -> the state dict of the port's
+    UnetEmbedder, HiddenEmbedder, VAEEmbedder or DVMarkEmbedder (chosen by
+    the parameter tree)."""
     params = embedder_vars["params"]
-    if "hidden_encoder" in params:
+    if "unet" not in params:
+        rules = (_HIDDEN if "hidden_encoder" in params
+                 else _DVMARK if "dvmark_encoder" in params else _VAE)
         flat = _flatten(params)
         flat.update(_flatten(embedder_vars.get("batch_stats", {})))
-        emb = _convert(flat, _HIDDEN)
-    else:
-        flat = _flatten(params["unet"])
-        flat.update(_flatten(embedder_vars.get("batch_stats", {}).get("unet", {})))
-        conv = _unet_conv(flat, lambda n: flat[n].ndim)
-        rules = _up_rules(flat) + _UNET_CONV[conv] + _UNET_BASE
-        emb = {f"unet.{k}": v for k, v in _convert(flat, rules).items()}
+        return _convert(flat, rules)
+    flat = _flatten(params["unet"])
+    flat.update(_flatten(embedder_vars.get("batch_stats", {}).get("unet", {})))
+    conv = _unet_conv(flat, lambda n: flat[n].ndim)
+    rules = _up_rules(flat) + _UNET_CONV[conv] + _UNET_BASE
+    return {f"unet.{k}": v for k, v in _convert(flat, rules).items()}
+
+
+def extractor_from_jax(extractor_vars: dict) -> dict:
+    """A videoseal_tpu extractor's variables -> the state dict of the port's
+    ConvnextExtractor, SegmentationExtractor, DinoExtractor, HiddenExtractor
+    or DVMarkExtractor (chosen by the parameter tree)."""
     ext = extractor_vars["params"]
     flat = _flatten(ext)
     enc = ext.get("encoder", {})
     if "hidden_decoder" in ext:
         rules = _HIDDEN
+    elif "dvmark_decoder" in ext:
+        rules = []
+    elif "cls_token" in enc:
+        rules = _DINO
     elif any(k.startswith("block_") for k in enc):
         rules = _VIT
     else:
         rules = (_CONVNEXT_TEMPORAL if "down1_temporal" in enc else []) + _CONVNEXT
-    return emb, _convert(flat, _up_rules(flat) + rules + _PIXEL_DECODER)
+    return _convert(flat, _up_rules(flat) + rules + _PIXEL_DECODER)
+
+
+def from_jax_variables(embedder_vars: dict, extractor_vars: dict) -> tuple[dict, dict]:
+    """(embedder_vars, extractor_vars) of a videoseal_tpu model -> (embedder
+    state dict, extractor state dict) of the port's modules."""
+    return embedder_from_jax(embedder_vars), extractor_from_jax(extractor_vars)
 
 
 # the inverse substitutions, applied in order to a port name; a norm's leaf
@@ -236,6 +272,22 @@ _HIDDEN_INV = [
     (r"\.layers\.0\.", ".conv."),
     (r"\.layers\.1\.", ".norm.@."),
 ]
+_VAE_INV = [
+    (r"\.(down|up)\.(\d+)\.(downsample|upsample)\.conv\.", r".\1_\2_\3."),
+    (r"\.(down|up)\.(\d+)\.(block|attn)\.(\d+)\.", r".\1_\2_\3_\4."),
+    (r"\.mid\.(block_1|attn_1|block_2)\.", r".mid_\1."),
+    (r"^msg_processor\.msg_embeddings\.weight$", "msg_processor.msg_embeddings"),
+    (r"^((?:encoder|decoder)\.(?:.*\.)?norm\w*)\.weight$", r"\1.scale"),   # GroupNorm
+]
+_DVMARK_INV = [(r"\.(transform|emb[123])\.(\d+)\.", r".\1_\2.")]
+_DINO_INV = [
+    (r"^image_encoder\.patch_embed\.proj\.", "encoder.patch_embed."),
+    (r"^image_encoder\.blocks\.(\d+)\.ls([12])\.gamma$", r"encoder.blocks_\1.ls\2"),
+    (r"^image_encoder\.blocks\.(\d+)\.mlp\.fc([12])\.", r"encoder.blocks_\1.mlp_fc\2."),
+    (r"^image_encoder\.blocks\.(\d+)\.", r"encoder.blocks_\1."),
+    (r"^image_encoder\.", "encoder."),
+    (r"^(encoder\.(?:.*\.)?norm\d?)\.weight$", r"\1.scale"),   # LayerNorm
+]
 # the UNet's norm module in the JAX tree, by the card's `normalization`
 _NORM_NAMES = {"batch": "bn", "group": "gn", "layer": "ln", "rms": "rms"}
 
@@ -281,36 +333,55 @@ def _nest(flat: dict) -> dict:
     return unflatten_tree({k.replace(".", SEP): v for k, v in flat.items()})
 
 
-def to_jax_variables(embedder_sd: dict, extractor_sd: dict, unet_norm: str = "batch",
-                     extractor_norm: str | None = None) -> tuple[dict, dict]:
-    """(embedder state dict, extractor state dict) of the port's modules ->
-    (embedder_vars, extractor_vars) of a videoseal_tpu model: the inverse of
-    `from_jax_variables`. `unet_norm` (the card's ``normalization``) names
-    the UNet's or the HiDDeN encoder's norms where the state dict cannot:
-    group and layer norms both hold a weight and a bias; `extractor_norm`
-    (default: the same) the HiDDeN decoder's."""
+def embedder_to_jax(embedder_sd: dict, unet_norm: str = "batch") -> dict:
+    """The inverse of `embedder_from_jax`. `unet_norm` (the card's
+    ``normalization``) names the UNet's or the HiDDeN encoder's norms where
+    the state dict cannot: group and layer norms both hold a weight and a
+    bias."""
     norm = _NORM_NAMES[unet_norm.split("_")[0]]
-    if any(k.startswith("hidden_encoder.") for k in embedder_sd):
-        params, stats = _invert(embedder_sd, _HIDDEN_INV, norm)
+    if not any(k.startswith("unet.") for k in embedder_sd):
+        rules = (_HIDDEN_INV if any(k.startswith("hidden_encoder.") for k in embedder_sd)
+                 else _DVMARK_INV if any(k.startswith("dvmark_encoder.") for k in embedder_sd)
+                 else _VAE_INV)
+        params, stats = _invert(embedder_sd, rules, norm)
         emb_vars = {"params": _nest(params)}
         if stats:
             emb_vars["batch_stats"] = _nest(stats)
-    else:
-        emb = {k[len("unet."):]: v for k, v in embedder_sd.items() if k.startswith("unet.")}
-        conv = _unet_conv(emb, lambda n: emb[n].dim())
-        params, stats = _invert(emb, _UNET_CONV_INV[conv] + _UNET_INV + _UP_INV, norm)
-        emb_vars = {"params": {"unet": _nest(params)}}
-        if stats:
-            emb_vars["batch_stats"] = {"unet": _nest(stats)}
+        return emb_vars
+    emb = {k[len("unet."):]: v for k, v in embedder_sd.items()}
+    conv = _unet_conv(emb, lambda n: emb[n].dim())
+    params, stats = _invert(emb, _UNET_CONV_INV[conv] + _UNET_INV + _UP_INV, norm)
+    emb_vars = {"params": {"unet": _nest(params)}}
+    if stats:
+        emb_vars["batch_stats"] = {"unet": _nest(stats)}
+    return emb_vars
+
+
+def extractor_to_jax(extractor_sd: dict, norm: str = "batch") -> dict:
+    """The inverse of `extractor_from_jax`; `norm` names the HiDDeN
+    decoder's norms."""
     if any(k.startswith("hidden_decoder.") for k in extractor_sd):
         rules = _HIDDEN_INV
+    elif any(k.startswith("dvmark_decoder.") for k in extractor_sd):
+        rules = []
+    elif "image_encoder.cls_token" in extractor_sd:
+        rules = _DINO_INV
     elif any(k.startswith("image_encoder.") for k in extractor_sd):
         rules = _VIT_INV
     else:
         rules = _CONVNEXT_INV
     ext, _ = _invert(extractor_sd, rules + _PIXEL_DECODER_INV + _UP_INV,
-                     _NORM_NAMES[extractor_norm.split("_")[0]] if extractor_norm else norm)
-    return emb_vars, {"params": _nest(ext)}
+                     _NORM_NAMES[norm.split("_")[0]])
+    return {"params": _nest(ext)}
+
+
+def to_jax_variables(embedder_sd: dict, extractor_sd: dict, unet_norm: str = "batch",
+                     extractor_norm: str | None = None) -> tuple[dict, dict]:
+    """(embedder state dict, extractor state dict) of the port's modules ->
+    (embedder_vars, extractor_vars) of a videoseal_tpu model: the inverse of
+    `from_jax_variables`. `extractor_norm` defaults to `unet_norm`."""
+    return (embedder_to_jax(embedder_sd, unet_norm),
+            extractor_to_jax(extractor_sd, extractor_norm or unet_norm))
 
 
 def disc_from_jax(disc_vars: dict) -> dict:
