@@ -179,6 +179,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      every option and 3 optimize steps card against CPU. Phase 20 alone:
      `python3 -c "import torch, chip_smoke as cs; smi, _ = cs.phase_device();
      cs.phase_build(); cs.phase_last(torch.device('cuda', 0), smi)"`.
+ 21. the rest of the package: (a) the spread-spectrum audio watermark (16
+     bits) on 60 s of 48 kHz stereo, embed and detect timed, the bits read
+     back, the card against the CPU (PCM within 1e-6, bits equal); (b)
+     embed_av on a 64-frame 1080p clip written with cv2, videoseal_1.0 in
+     bf16 with the audio processor: the route, the audio's outcome and why,
+     the frames, the PSNR and ms a frame, then detect_video of the output
+     (K4 and K2 at least once each, their first calls per shape held
+     against their plain versions); (c) make_config -> load(card path) on
+     the card (the checkpoint's weights), and process_sab on 32 synthetic
+     1500x2250 JPEGs (files a second, the card's resize equal to the
+     CPU's); (d) both examples and the four notebooks at their default
+     sizes on the card (K2 and K4 each, held); (e) the frames axis at
+     videoseal_1.0's full width in video mode, 1x2 and 2x2 gloo ranks
+     sharing the card, and a 2x1 data-only mesh of the 2p1d UNet and the
+     temporal ConvNeXt (modules that mix frames, run on the whole batch by
+     every rank), each against one process on the whole batch (2 clips of
+     16 frames), TF32 off: losses and scales within 1e-5 relative, the
+     BatchNorm statistics within 1e-5 of each tensor's largest, the
+     updated parameters as phase 18 holds them, every rank with rank 0's
+     parameters; the step times and the largest gradient gap printed.
+     (e) alone, also against another checkout's package (run from its
+     root): `python3 -c "import chip_smoke as cs; smi, _ =
+     cs.phase_device(); cs._rest_frames(smi, cs.FRAMES_RUNS[2:])"`.
+     Phase 21 alone: `python3 -c "import torch, chip_smoke as cs;
+     smi, _ = cs.phase_device(); cs.phase_build(); cs.phase_rest(
+     torch.device('cuda', 0), smi)"`.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -328,6 +354,19 @@ LAST_F32_ATOL, LAST_GRAD_RTOL = 1e-4, 1e-3
 # 32 px (1,024 tokens)
 VAE_WIDTHS = dict(ch=64, out_ch=3, num_res_blocks=2, resolution=256, z_channels=4,
                   ch_mult=[1, 2, 4, 8], attn_resolutions=[32])
+# phase 21: seconds of 48 kHz stereo audio; the AV clip's frames (1080p);
+# SA-1B's image size and the images process_sab resizes; the frames axis's
+# clips (videoseal_1.0 at 256 px, F_TRAIN_CLIP frames a clip) and meshes.
+# The audio on the card against the CPU: the same float32 framing and
+# sums in another order, the watermark ~3e-2 of the signal (AUDIO_ATOL)
+AUDIO_S, AUDIO_SR, AUDIO_ATOL, F_AV = 60, 48000, 1e-6, 64
+SAB_HW, SAB_N = (1500, 2250), 32
+# (n_data, n_frames, model flags): the frames axis, and a data-only mesh
+# whose modules mix frames (each rank runs them on the whole batch)
+FRAMES_CLIPS, MIX_FLAGS = 2, ("--embedder_model", "unet_small2_yuv_quant_2p1d",
+                              "--extractor_model", "convnext_tiny_temporal")
+FRAMES_RUNS = ((1, 2, ("--card", "videoseal_1.0")), (2, 2, ("--card", "videoseal_1.0")),
+               (2, 1, MIX_FLAGS))
 WMF_STEPS, WMF_GM_STEPS, WMF_OPT_STEPS, WMF_BATCH = 4, 4, 50, 8
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -3292,6 +3331,363 @@ def phase_last(dev, smi: str) -> dict:
     return rec
 
 
+def rank_frames_step(rank: int, dev_name: str, card_args: list, size: int, n_data: int,
+                     n_frames: int) -> dict:
+    """On each rank of an n_data x n_frames mesh (a gloo group, every rank
+    on one device), TF32 off: two video steps at SGD lr 1 on the rank's
+    block of FRAMES_CLIPS clips of F_TRAIN_CLIP frames (its clips by data
+    rank, its frames by frames rank) with DEFAULT_AUGS' draws from one
+    generator seed. Rank 0 then runs one process's two steps on the whole
+    batch from the same state and draws and returns the first steps'
+    errors; every rank returns how far its parameters are from rank 0's."""
+    import torch.distributed as dist
+
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    dev = torch.device(dev_name)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(n_data, n_frames)
+    imgs = torch.as_tensor(np.random.default_rng(41).uniform(
+        0, 1, (FRAMES_CLIPS, F_TRAIN_CLIP, size, size, 3)).astype(np.float32))
+    args = train.get_parser().parse_args(card_args + [
+        "--balanced", "1", "--optimizer", "SGD,lr=1.0", "--optimizer_d", "SGD,lr=1.0"])
+    rec = {}
+    for where, m in (("ranks", mesh), ("one", None)):
+        if where == "one" and rank != 0:
+            break
+        mods, state, _ = train.build_trainer(args, dev, m)
+        step = make_train_step(mods, is_video=True)
+        x = imgs if m is None else (shard_batch(m, imgs, frames_axis=1) if n_frames > 1
+                                    else shard_batch(m, imgs))
+        x = x.to(dev)
+        gen = torch.Generator().manual_seed(7)
+        times = []
+        for i in range(2):
+            sync()
+            t0 = time.perf_counter()
+            _, logs = step(state, {"imgs": x}, gen)
+            sync()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                rec[where] = _step_record(state, logs)
+        rec[where + "_s"] = times
+        if where == "ranks":
+            flat = torch.cat([p.detach().reshape(-1) for p in state.embedder.parameters()]
+                             + [p.detach().reshape(-1) for p in state.extractor.parameters()])
+            ref = flat.clone()
+            dist.broadcast(ref, 0)
+            rec["rank_gap"] = float((flat - ref).abs().max())
+        del mods, state
+        if cuda:
+            torch.cuda.empty_cache()
+    if rank != 0:
+        return {"rank_gap": rec["rank_gap"]}
+    return {"rank_gap": rec["rank_gap"], "ranks_s": rec["ranks_s"], "one_s": rec["one_s"],
+            **_module_errors(rec["ranks"], rec["one"])}
+
+
+def check_some(path: str, want: tuple, allowed: tuple = ()) -> dict:
+    """A path's counts where its chunking sets them: each kernel of `want`
+    launched at least once, none but those and `allowed`."""
+    got = read_counts()
+    log(f"[{path}] launches {got} (each of {want} at least once, no other"
+        f"{' but ' + str(allowed) if allowed else ''})")
+    if any(got[k] == 0 for k in want) or any(
+            v for k, v in got.items() if k not in want + allowed):
+        raise AssertionError(f"{path}: kernel launch counts {got}")
+    return got
+
+
+def _rest_audio(dev, smi: str) -> dict:
+    """(a) the spread-spectrum watermark, 16 bits, on AUDIO_S seconds of
+    48 kHz stereo: embed and detect timed on the card, the bits read back,
+    and the card against the CPU."""
+    from videoseal_tpu_torch.audio_wm import SpreadSpectrumAudio
+    rng = np.random.default_rng(5)
+    t = np.arange(AUDIO_S * AUDIO_SR) / AUDIO_SR
+    x = sum(a * np.sin(2 * np.pi * f * t) for a, f in [(0.3, 220.0), (0.2, 440.0), (0.15, 3e3)])
+    x = x + rng.normal(0, 0.05, t.shape)
+    x = (x / (np.abs(x).max() * 1.2)).astype(np.float32)
+    pcm = np.stack([x, np.roll(x, 7)])
+    card, cpu = (SpreadSpectrumAudio(nbits=16, key=0, device=d) for d in (dev, "cpu"))
+    msg = card.get_random_msg(torch.Generator().manual_seed(0))
+    x_dev = torch.from_numpy(pcm).to(dev)
+    marked = card.embed(x_dev, AUDIO_SR, msg)
+    bits, conf = card.detect(marked, AUDIO_SR)
+    want = cpu.embed(pcm, AUDIO_SR, msg.cpu())
+    cbits, cconf = cpu.detect(want, AUDIO_SR)
+    err = float((marked.cpu() - want).abs().max())
+    embed_ms = cuda_ms(lambda: card.embed(x_dev, AUDIO_SR, msg))
+    detect_ms = cuda_ms(lambda: card.detect(marked, AUDIO_SR))
+    log(f"[rest] audio watermark, 16 bits, {AUDIO_S} s of {AUDIO_SR} Hz stereo: embed "
+        f"{embed_ms:.3f} ms, detect {detect_ms:.3f} ms ({smi}); bits equal to the message: "
+        f"{bool(torch.equal(bits, msg))}, confidence {float(conf.mean()):.3f}; card vs CPU: "
+        f"PCM max abs {err:.2e}, bits equal {bool(torch.equal(bits.cpu(), cbits))}, "
+        f"confidence max abs {float((conf.cpu() - cconf).abs().max()):.2e}")
+    if not torch.equal(bits, msg) or err > AUDIO_ATOL or not torch.equal(bits.cpu(), cbits):
+        raise AssertionError(f"audio watermark: bits {bits.tolist()} vs {msg.tolist()}, "
+                             f"card vs CPU {err:.3e}")
+    return {"embed_ms": embed_ms, "detect_ms": detect_ms, "cpu_err": err}
+
+
+def _write_clip_cv2(path: str, frames: np.ndarray) -> None:
+    import cv2
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24,
+                         (frames.shape[2], frames.shape[1]))
+    for fr in frames:
+        wr.write(np.ascontiguousarray(fr[..., ::-1]))
+    wr.release()
+
+
+def _read_clip_cv2(path: str) -> np.ndarray:
+    import cv2
+    cap, out = cv2.VideoCapture(path), []
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        out.append(fr[..., ::-1])
+    cap.release()
+    return np.stack(out)
+
+
+def _rest_av(dev, tmp: str, smi: str) -> dict:
+    """(b) embed_av on an F_AV-frame 1080p clip written with cv2,
+    videoseal_1.0 at full width in bf16 with its default audio processor,
+    then the output's message (detect_video)."""
+    import shutil as sh
+
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch import native
+    from videoseal_tpu_torch.audio_wm import SpreadSpectrumAudio, make_audio_processor
+    from videoseal_tpu_torch.evals.full import synthetic_samples
+    from videoseal_tpu_torch.inference_av import embed_av
+    from videoseal_tpu_torch.inference_streaming import detect_video
+    src, dst = os.path.join(tmp, "av_in.mp4"), os.path.join(tmp, "av_out.mp4")
+    clip = next(synthetic_samples(1, (F_AV, H, W, 3), seed=9))
+    _write_clip_cv2(src, np.clip(clip * 255 + 0.5, 0, 255).astype(np.uint8))
+    del clip
+    model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
+    wm = SpreadSpectrumAudio(nbits=16, device=dev)
+    proc = make_audio_processor(wm.get_random_msg(torch.Generator().manual_seed(0)), wm)
+    ffmpeg = sh.which("ffmpeg")
+    with _Capture() as cap:
+        reset_counts()
+        t0 = time.perf_counter()
+        info = embed_av(model, src, dst, audio_processor=proc)
+        wall = time.perf_counter() - t0
+        embed_counts = check_some("rest embed_av", ("K4",))
+        reset_counts()
+        msg = detect_video(model, dst)
+        detect_counts = check_some("rest embed_av detect", ("K2",))
+    worst = hold_captured("rest embed_av", cap.calls)
+    a, b = _read_clip_cv2(src).astype(np.float64), _read_clip_cv2(dst).astype(np.float64)
+    psnr = float(20 * np.log10(255.0) - 10 * np.log10(np.mean((a - b) ** 2)))
+    acc = float((msg.cpu() == info["msgs"].cpu()).float().mean())
+    log(f"[rest] embed_av, videoseal_1.0 bf16, {F_AV} 1080p frames: route {info['route']}, "
+        f"audio muxed {info['audio']}, watermarked {info['audio_wm']}"
+        f"{' (' + info['audio_note'] + ')' if info['audio_note'] else ''}; native runtime "
+        f"{native.available()}, ffmpeg {ffmpeg}; frames written {info['frames']}; PSNR "
+        f"{psnr:.2f} dB (the two files decoded by cv2: the codec's loss included); "
+        f"{wall * 1e3 / info['frames']:.2f} ms a frame ({smi}; host clock, decode, device, "
+        f"encode and mux); the output's bits against the message {acc:.3f} (random weights)")
+    if info["frames"] != F_AV or not math.isfinite(psnr):
+        raise AssertionError(f"embed_av: {info['frames']} frames, PSNR {psnr}")
+    if not native.available() and ffmpeg is None and info["audio"] is not False:
+        raise AssertionError("embed_av without the native runtime and ffmpeg muxed audio")
+    del model
+    torch.cuda.empty_cache()
+    return {"route": info["route"], "audio": info["audio"], "audio_note": info["audio_note"],
+            "psnr": psnr, "ms_per_frame": wall * 1e3 / info["frames"], "bit_acc": acc,
+            "worst": worst,
+            "launches": {k: embed_counts[k] + detect_counts[k] for k in embed_counts}}
+
+
+def _rest_scripts(dev, tmp: str, smi: str) -> dict:
+    """(c) make_config -> load(card_path) on the card, and process_sab on
+    SAB_N synthetic SA-1B-sized JPEGs (all in the train split)."""
+    import cv2
+
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch.ops.resize import resize_bicubic_pil
+    from videoseal_tpu_torch.scripts import make_config, process_sab
+    from videoseal_tpu_torch.utils.cfg import load_card
+    card = load_card("videoseal_1.0")
+    ckpt = os.path.join(tmp, "ckpt", "checkpoint.npz")
+    os.makedirs(os.path.dirname(ckpt))
+    targs = {**card["args"], "img_size": 256, "embedder_card": card["embedder"],
+             "extractor_card": card["extractor"]}
+    with open(os.path.join(os.path.dirname(ckpt), "args.json"), "w") as f:
+        json.dump(targs, f)
+    # the model the card describes: make_config keeps five of the training
+    # args, as the JAX package's does (hidden_size_multiplier falls back to 2)
+    src_card = {k: v for k, v in make_config.make_card(ckpt, targs).items()
+                if k != "checkpoint_path"}
+    src_model = vt.VideoSeal.from_card(src_card, device=dev, seed=3)
+    vt.save_npz(ckpt, src_model)
+    card_path = os.path.join(tmp, "card.yaml")
+    make_config.main([ckpt, "--output", card_path])
+    model = vt.load(card_path, device=dev)
+    same = all(torch.equal(model.state_dict()[k], v) for k, v in src_model.state_dict().items())
+    log(f"[rest] make_config -> load({os.path.basename(card_path)}) on {model.device}: "
+        f"{sum(p.numel() for m in (model.embedder, model.extractor) for p in m.parameters())} "
+        f"parameters, equal to the checkpoint's: "
+        f"{same}")
+    if not same or model.device.type != dev.type:
+        raise AssertionError("make_config: the card did not load the checkpoint on the card")
+    del model, src_model
+    sab_src, sab_dst = os.path.join(tmp, "sab"), os.path.join(tmp, "sab_out")
+    os.makedirs(sab_src)
+    rng = np.random.default_rng(11)
+    h, w = SAB_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(SAB_N):
+        img = np.stack([yy / h * 200 + 20 * i % 50, xx / w * 180, (xx + yy) % 255], -1)
+        img += rng.normal(0, 12, (h // 8 + 1, w // 8 + 1, 3)).repeat(8, 0).repeat(8, 1)[:h, :w]
+        cv2.imwrite(os.path.join(sab_src, f"sa_{i:05d}.jpg"),
+                    np.clip(img, 0, 255).astype(np.uint8), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    t0 = time.perf_counter()
+    res = process_sab.main([sab_src, sab_dst, "--num_test", "0", "--num_val", "0", "--size",
+                            "256", "--workers", "8", "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    outs = sorted(os.listdir(os.path.join(sab_dst, "train")))
+    shapes = {cv2.imread(os.path.join(sab_dst, "train", f)).shape for f in outs}
+    two = torch.from_numpy(np.stack([cv2.imread(os.path.join(sab_src, f)) for f in outs[:2]]))
+    exact = torch.equal(resize_bicubic_pil(two.to(dev), 256, 256).cpu(),
+                        resize_bicubic_pil(two, 256, 256))
+    log(f"[rest] process_sab: {res['train']} {h}x{w} JPEGs -> 256x256 in {secs:.2f} s, "
+        f"{res['train'] / secs:.1f} files/s (8 I/O threads, one resize call on the card; "
+        f"{smi}); the card's resize equal to the CPU's: {exact}")
+    if len(outs) != SAB_N or shapes != {(256, 256, 3)} or not exact:
+        raise AssertionError(f"process_sab: {len(outs)} files of {shapes}, exact {exact}")
+    torch.cuda.empty_cache()
+    return {"files_per_s": res["train"] / secs, "seconds": secs}
+
+
+def run_notebook(path: str, out_dir: str) -> dict:
+    """A notebook's code cells top to bottom in one namespace, its first
+    cell's out_dir set to `out_dir` (the device stays the card)."""
+    with open(path) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    ns: dict = {"__name__": "__main__"}
+    for i, cell in enumerate(cells):
+        exec(compile(cell, f"{os.path.basename(path)}[{i}]", "exec"), ns)
+        if i == 0:
+            if ns.get("device") != "cuda":
+                raise AssertionError(f"{path}: its first cell does not set device = 'cuda'")
+            ns["out_dir"] = out_dir
+    return ns
+
+
+def _rest_examples(dev, tmp: str, smi: str) -> dict:
+    """(d) both examples and all four notebooks on the card, at their
+    default sizes, each launch's first call per shape held against its
+    plain version."""
+    from videoseal_tpu_torch.examples import image_watermarking, video_watermarking
+    nb_dir = os.path.join(ROOT, "videoseal_tpu_torch", "notebooks")
+    launches = {k: 0 for k in kernel_wrappers()}
+    rec = {}
+    runs = [("image example", lambda: image_watermarking.main(
+                ["--out_dir", os.path.join(tmp, "ex_img")])),
+            ("video example", lambda: video_watermarking.main(
+                ["--out", os.path.join(tmp, "ex_video.mp4")]))]
+    runs += [(f"notebook {n}", lambda n=n: run_notebook(
+        os.path.join(nb_dir, n + ".ipynb"), os.path.join(tmp, "nb_" + n)))
+        for n in ("image_inference", "video_inference", "video_inference_streaming",
+                  "av_inference")]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with _Capture() as cap:
+            for tag, fn in runs:
+                reset_counts()
+                t0 = time.perf_counter()
+                out = fn()
+                secs = time.perf_counter() - t0
+                # the streaming notebook takes the planar route (K1) where the
+                # native runtime loads
+                got = check_some(f"rest {tag}", ("K2", "K4"), allowed=("K1",))
+                launches = {k: launches[k] + got[k] for k in got}
+                if tag.startswith("notebook") and tag.endswith("av_inference"):
+                    info = out["info"]
+                    note = f"; route {info['route']}, audio {info['audio']} ({info['audio_note']})"
+                elif tag.startswith("notebook"):
+                    note = ""
+                else:
+                    note = f"; {json.dumps(out)}"
+                    if not math.isfinite(out["psnr"]):
+                        raise AssertionError(f"{tag}: PSNR {out['psnr']}")
+                log(f"[rest] {tag} on the card: {secs:.2f} s{note}")
+                rec[tag] = secs
+    finally:
+        os.chdir(cwd)
+    rec["worst"] = hold_captured("rest examples", cap.calls)
+    rec["launches"] = launches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rest_frames(smi: str, runs=FRAMES_RUNS, dev_name: str = "cuda:0", size: int = 256) -> dict:
+    """(e) the frames axis at videoseal_1.0's full width in video mode, and
+    a data-only mesh whose embedder and extractor mix frames (the 2p1d
+    UNet, the temporal ConvNeXt): each of `runs` on gloo ranks sharing the
+    card against one process on the whole batch, TF32 off, held to phase
+    18's tolerances. Each run's line is printed before it is held."""
+    from videoseal_tpu_torch.parallel.launch import run_local
+    rec = {}
+    for nd, nf, flags in runs:
+        t0 = time.perf_counter()
+        res = run_local(rank_frames_step, nd * nf, dev_name, list(flags), size, nd, nf,
+                        backend="gloo", timeout=600)
+        r0, gap = res[0], max(r["rank_gap"] for r in res)
+        what = ("frames axis, videoseal_1.0" if nf > 1 else
+                "data axis, modules that mix frames (" + " ".join(flags[1::2]) + ")")
+        log(f"[rest] {what}, {nd}x{nf} ({nd * nf} gloo ranks on one card), video step, "
+            f"{FRAMES_CLIPS} clips of {F_TRAIN_CLIP} frames at {size}x{size}, TF32 off, vs "
+            f"one process: losses/scales rel {r0['logs']:.2e}, BN stats of each tensor's largest "
+            f"{r0['bn_rel']:.2e} (abs {r0['bn']:.2e}), largest gradient gap (of its module's "
+            f"largest) {r0['grads']:.2e} at {r0['grads_at']}, updated params abs "
+            f"{r0['params']:.2e} (largest gradient {r0['scale']:.3g}), ranks' parameters from "
+            f"rank 0 {gap:.2e}; step on the mesh {r0['ranks_s'][0] * 1e3:.0f} ms first, "
+            f"{r0['ranks_s'][1] * 1e3:.0f} ms second; one process {r0['one_s'][0] * 1e3:.0f} ms "
+            f"first, {r0['one_s'][1] * 1e3:.0f} ms second ({smi}; host clock, the ranks share "
+            f"the card); {time.perf_counter() - t0:.1f} s with the spawn")
+        if (gap != 0.0 or r0["logs"] > DIST_LOG_RTOL or r0["bn_rel"] > DIST_BN_RTOL
+                or r0["params"] > TRAIN_GRAD_RTOL * r0["scale"] + TRAIN_PARAM_ATOL):
+            raise AssertionError(f"{what} {nd}x{nf} against one process: {r0}, gap {gap}")
+        rec[f"{nd}x{nf}" + ("" if nf > 1 else " mix")] = {
+            **{k: v for k, v in r0.items() if k != "grads_at"}, "rank_gap": gap}
+    return rec
+
+
+def phase_rest(dev, smi: str) -> dict:
+    """Phase 21: the audio watermark, embed_av, make_config and
+    process_sab, the examples and notebooks, and the frames axis."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    rec = {"launches": {k: 0 for k in kernel_wrappers()}}
+    try:
+        rec["audio"] = _rest_audio(dev, smi)
+        rec["av"] = _rest_av(dev, tmp, smi)
+        rec["scripts"] = _rest_scripts(dev, tmp, smi)
+        rec["examples"] = _rest_examples(dev, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for part in ("av", "examples"):
+        rec["launches"] = {k: rec["launches"][k] + rec[part]["launches"][k]
+                           for k in rec["launches"]}
+    rec["frames"] = _rest_frames(smi)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -3398,13 +3794,15 @@ def main() -> int:
     rec["dist"] = phase_dist(dev, smi, rec["train"])
     rec["presets"] = phase_presets(dev, smi)
     rec["last"] = phase_last(dev, smi)
+    rec["rest"] = phase_rest(dev, smi)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
-                                            "attacks", "train", "dist", "presets", "last")]
+                                            "attacks", "train", "dist", "presets", "last",
+                                            "rest")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},

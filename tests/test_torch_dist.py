@@ -16,6 +16,13 @@ batch, and against one process of the port.
 * The global-batch BatchNorm forward and backward, the sharded checkpoint
   at world size 1 and 2, the logger's sync and `average_metrics`, and
   `train.main --distributed 1` on two ranks.
+* The ("data", "frames") mesh: a video step on a 1x2 and a 2x2 mesh, each
+  rank on its frames of its clips, against one port process on the whole
+  batch (video_mode repeat and interpolate, a rank's frames not a multiple
+  of step_size, a frame-mixing attack, an embedder that mixes frames), and
+  the 2x2 step against JAX's step on ``make_mesh(n_data=2, n_frames=2)``
+  with the batch sharded on ``frames_axis=1`` (the graft dry run's tiny
+  card, the dummy augmenter, JAX's messages injected).
 
 The ranks of each part run in one spawned group; the tests read its record.
 """
@@ -26,11 +33,13 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_train import _jax_step, _port_sds
+from test_torch_train import JAX_COMPILE_OPTIONS, _jax_step, _port_sds
 from torch_port import TRAIN_NBITS as NBITS
+from torch_port import TRAIN_EMB_CFG, TRAIN_EXT_CFG
 from torch_port import TRAIN_SIZE as SIZE
-from torch_port import (port_train_mods, rank_collectives, rank_train_main, rank_train_steps,
-                        same_state, step_record, train_weights)
+from torch_port import (port_train_mods, rank_collectives, rank_counted_step, rank_frames_steps,
+                        rank_train_main, rank_train_steps, same_state, step_record,
+                        train_weights)
 
 torch.set_num_threads(2)
 
@@ -235,18 +244,220 @@ def test_train_main_distributed(tmp_path):
     assert len(rows) == 2        # one eval a run, written once (rank 0)
 
 
-def test_batch_must_split_over_ranks():
+def test_one_rank_runs_the_collectives(weights):
+    """A process group of one rank (`train.main --distributed 1` at world
+    size 1) still runs the step's collectives: the global BatchNorm's
+    forward and backward reductions, the balance's norms, both optimizers'
+    gradient means and the logs' mean, and gives one process's step."""
+    from videoseal_tpu_torch.parallel.launch import run_local
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    imgs = _batch(False, 11)
+    (res,) = run_local(rank_counted_step, 1, weights, imgs)
+    assert res["bn_layers"] > 0 and res["bn_grouped"]
+    assert res["all_reduces"] == 2 * res["bn_layers"] + 4
+    mods, state = port_train_mods(weights, True)
+    _, logs = make_train_step(mods)(state, {"imgs": torch.from_numpy(imgs)},
+                                    torch.Generator().manual_seed(1))
+    one, got = step_record(state, logs), res["record"]
+    for k, v in one["logs"].items():
+        assert abs(got["logs"][k] - v) <= DDP_LOG_RTOL * max(abs(v), 1e-6), k
+    for k, g in one["grads"].items():
+        np.testing.assert_allclose(got["grads"][k], g, rtol=0,
+                                   atol=DDP_GRAD_RTOL * float(g.abs().max()) + GRAD_ATOL,
+                                   err_msg=k)
+
+
+def test_batch_must_split_over_ranks(frames_steps):
     from videoseal_tpu_torch.parallel.mesh import Mesh, make_mesh
     m = Mesh(rank=1, size=2)
     assert m.shard(6) == slice(3, 6)
     with pytest.raises(ValueError, match="does not split"):
         m.shard(5)
     assert make_mesh().size == 1 and make_mesh().group is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+    with pytest.raises(ValueError, match="without a process group"):
         make_mesh(n_frames=2)
+    # make_mesh(n_frames=2) on two ranks: a working 1x2 mesh
+    facts = [f for f, _ in frames_steps[0][(1, 2)]]
+    assert [f["axes"] for f in facts] == [(0, 1, 0, 2, 2), (0, 1, 1, 2, 2)]
+    m = Mesh(rank=1, size=2, frames_rank=1, frames_size=2)
+    assert m.frames_shard(6) == slice(3, 6)
+    assert m.rows(1, 3).tolist() == [9, 10, 11]     # clip 1 of 2, frames 3..5 of 6
 
 
 def test_slurm_first_host():
     from videoseal_tpu_torch.utils.dist import _slurm_first_host
     assert _slurm_first_host("node[3-7,9]") in ("node3",)
     assert _slurm_first_host("gpu-a12") == "gpu-a12"
+
+
+# -- the frames axis ----------------------------------------------------------------------
+
+# a frame-mixing attack (twice a step) after per-sample masks
+FRAMES_AUGS = {"masks": {"kind": "mixed", "invert_proba": 0.5},
+               "augs": {"temporal_reorder": 1}, "augs_params": {}}
+# (video_mode, frames per clip, conv_layer, augs, balanced)
+FRAMES_CASES = [("repeat", 8, "conv2d", None, False),
+                ("interpolate", 8, "conv2d", FRAMES_AUGS, True),
+                ("interpolate", 6, "conv2d", FRAMES_AUGS, True),   # 3 frames a rank, step 2
+                ("repeat", 8, "conv2p1d", FRAMES_AUGS, True)]     # the embedder mixes frames
+MESHES = [(1, 2), (2, 2)]
+GRAFT_NBITS, GRAFT_SIZE = 16, 32      # __graft_entry__.py's dry run
+
+
+def _clips(n_clips: int, n_frames: int, size: int, seed: int, dtype=np.float32) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(
+        0, 1, (n_clips, n_frames, size, size, 3)).astype(dtype)
+
+
+def _jax_mesh_step(weights, imgs, n_data, n_frames, seed=0):
+    """JAX's video step at SGD lr 1 on the graft dry run's tiny card, the
+    batch sharded over make_mesh(n_data, n_frames) on the CPU devices:
+    (logs, new variables as numpy, msgs)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from videoseal_tpu.parallel import mesh as pmesh
+    from videoseal_tpu.parallel.trainer import TrainState, make_train_step
+    ev, xv, dv = weights
+    from videoseal_tpu.augmentation.augmenter import get_dummy_augmenter
+    from videoseal_tpu.losses.videosealloss import VideoSealLoss
+    from videoseal_tpu.models.embedder import build_embedder
+    from videoseal_tpu.models.extractor import build_extractor
+    from videoseal_tpu.models.videoseal import PipelineConfig
+    from videoseal_tpu.modules.discriminator import NLayerDiscriminator
+    from videoseal_tpu.modules.jnd import JND
+    from videoseal_tpu.parallel.trainer import TrainerModules
+    mods = TrainerModules(
+        embedder=build_embedder("unet_tiny_yuv", TRAIN_EMB_CFG, GRAFT_NBITS, 2).module,
+        extractor=build_extractor("convnext_tiny", TRAIN_EXT_CFG, GRAFT_SIZE,
+                                  GRAFT_NBITS).module,
+        discriminator=NLayerDiscriminator(ndf=8, n_layers=2), augmenter=get_dummy_augmenter(),
+        attenuation=JND(), cfg=PipelineConfig(img_size=GRAFT_SIZE, chunk_size=4, step_size=2,
+                                              yuv=True, nbits=GRAFT_NBITS),
+        loss=VideoSealLoss(balanced=True, total_norm=1.0, percep_loss="yuv",
+                           decode_weight=1.0, detect_weight=0.0),
+        balanced=True)
+    og, od = optax.sgd(1.0), optax.sgd(1.0)
+    gen = {"embedder": ev["params"], "extractor": xv["params"]}
+    state = TrainState(step=jnp.zeros((), jnp.int32), embedder_params=ev["params"],
+                       embedder_stats=ev["batch_stats"], extractor_params=xv["params"],
+                       disc_params=dv["params"], opt_state_g=og.init(gen),
+                       opt_state_d=od.init(dv["params"]), scaling_w=jnp.float32(0.2))
+    key = jax.random.PRNGKey(seed)
+    msgs = np.asarray(jax.random.randint(jax.random.split(key)[0],
+                                         (imgs.shape[0], GRAFT_NBITS), 0, 2))
+    mesh = pmesh.make_mesh(n_data=n_data, n_frames=n_frames,
+                           devices=jax.devices("cpu")[:n_data * n_frames])
+    with mesh:
+        state = jax.device_put(state, pmesh.replicated(mesh))
+        batch = pmesh.shard_batch(mesh, {"imgs": jnp.asarray(imgs)}, frames_axis=1)
+        assert batch["imgs"].sharding.spec[:2] == ("data", "frames")
+        step = make_train_step(mods, og, od, is_video=True).lower(
+            state, batch, key).compile(JAX_COMPILE_OPTIONS)
+        new, logs = step(state, batch, key)
+        new = jax.tree_util.tree_map(np.asarray, new)
+    return ({k: float(v) for k, v in logs.items()},
+            ({"params": new.embedder_params, "batch_stats": new.embedder_stats},
+             {"params": new.extractor_params}, {"params": new.disc_params}), msgs)
+
+
+@pytest.fixture(scope="module")
+def frames_steps(weights):
+    """({(n_data, n_frames): each rank's (facts, records)}, JAX's 2x2 step,
+    the graft card's weights): the 1x2 and the 2x2 groups run one after the
+    other while JAX compiles its step."""
+    import concurrent.futures
+
+    from videoseal_tpu_torch.parallel.launch import run_local
+    gw = train_weights(GRAFT_NBITS, GRAFT_SIZE)
+    g_imgs = _clips(2, 8, GRAFT_SIZE, 31)
+
+    def groups(jax_msgs):
+        out = {}
+        for nd, nf in MESHES:
+            cases = [(weights, _clips(nd, f, SIZE, 30 + i, np.float64), None, bal, mode, conv,
+                      augs, i + 1, NBITS, SIZE)
+                     for i, (mode, f, conv, augs, bal) in enumerate(FRAMES_CASES)]
+            if (nd, nf) == (2, 2):
+                cases.append((gw, g_imgs, jax_msgs, True, "repeat", "conv2d", None, 0,
+                              GRAFT_NBITS, GRAFT_SIZE))
+            out[(nd, nf)] = run_local(rank_frames_steps, nd * nf, nd, nf, cases)
+        return out
+
+    import jax
+    key = jax.random.split(jax.random.PRNGKey(0))[0]       # _jax_mesh_step's message draw
+    jax_msgs = np.asarray(jax.random.randint(key, (2, GRAFT_NBITS), 0, 2), np.int64)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(groups, jax_msgs)
+        jax_step = _jax_mesh_step(gw, g_imgs, 2, 2)
+        ranks = ranks.result()
+    assert np.array_equal(jax_step[2], jax_msgs)
+    return ranks, jax_step, gw
+
+
+@pytest.mark.parametrize("n_data,n_frames", MESHES)
+def test_frames_mesh_gathers_clips(frames_steps, n_data, n_frames):
+    """Each rank's (data, frames) place, and its clip gathered from its
+    frames ranks' blocks by ``gather_frames``."""
+    facts = [f for f, _ in frames_steps[0][(n_data, n_frames)]]
+    assert [f["axes"] for f in facts] == [(r // n_frames, n_data, r % n_frames, n_frames,
+                                           n_data * n_frames) for r in range(len(facts))]
+    for f in facts:
+        assert torch.equal(f["clip"], f["want"])
+
+
+@pytest.mark.parametrize("n_data,n_frames", MESHES)
+@pytest.mark.parametrize("case", range(len(FRAMES_CASES)))
+def test_frames_step_matches_one_process(weights, frames_steps, n_data, n_frames, case):
+    """A video step on a frames-sharded mesh, every rank on its frames of
+    its clips, against one port process on the whole batch from the same
+    generator seed: the logs, every gradient and the BatchNorm statistics,
+    the same on every rank. Both run in float64: in float32 the order of
+    the cross-rank sums alone moves a gradient before a BatchNorm by up to
+    5e-3 of its own largest (one process at 1 and at 2 threads differs as
+    much at 2x2), so float64 shows the sharding's arithmetic; the float32
+    step on the mesh is held against JAX's below and on the card."""
+    from videoseal_tpu_torch.augmentation.augmenter import build_augmenter
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    mode, f, conv, augs, balanced = FRAMES_CASES[case]
+    recs = [r[case] for _, r in frames_steps[0][(n_data, n_frames)]]
+    aug = build_augmenter(augs, num_augs=2) if augs else None
+    mods, state = port_train_mods(weights, balanced, augmenter=aug, video_mode=mode,
+                                  conv_layer=conv, dtype=torch.float64)
+    _, logs = make_train_step(mods, is_video=True)(
+        state, {"imgs": torch.from_numpy(_clips(n_data, f, SIZE, 30 + case, np.float64))},
+        torch.Generator().manual_seed(case + 1))
+    one = step_record(state, logs)
+    rec = recs[0]
+    for k, v in one["logs"].items():
+        np.testing.assert_allclose(rec["logs"][k], v, rtol=DDP_LOG_RTOL, atol=LOG_ATOL, err_msg=k)
+    _close(rec["grads"], one["grads"], DDP_GRAD_RTOL)
+    for k, v in one["bn"].items():
+        torch.testing.assert_close(rec["bn"][k], v, rtol=1e-5, atol=1e-6, msg=k)
+    for other in recs[1:]:
+        assert other["logs"] == rec["logs"]
+        for k, v in rec["params"].items():
+            assert torch.equal(other["params"][k], v), k
+
+
+def test_frames_step_matches_jax_mesh(frames_steps):
+    """The port's 2x2 step against JAX's on the same 2x2 mesh (the batch
+    sharded on data and frames), within test_torch_train.py's video
+    tolerance (ROADMAP §3.24)."""
+    ranks, (jlogs, jnew, _), gw = frames_steps
+    rec = ranks[(2, 2)][0][1][len(FRAMES_CASES)]
+    assert set(rec["logs"]) == set(jlogs)
+    for k, v in jlogs.items():
+        np.testing.assert_allclose(rec["logs"][k], v, rtol=LOG_RTOL, atol=LOG_ATOL, err_msg=k)
+    old, new = _port_sds(*gw), _port_sds(*jnew)
+    for i in range(3):
+        for name, o in old[i].items():
+            key = f"{i}.{name}"
+            if key not in rec["params"]:
+                continue
+            want_g = o - new[i][name]
+            tol = GRAD_RTOL_VIDEO * float(want_g.abs().max()) + GRAD_ATOL
+            torch.testing.assert_close(rec["grads"][key], want_g, rtol=0, atol=tol, msg=key)
+    for k, v in rec["bn"].items():
+        torch.testing.assert_close(v, new[0][k], rtol=1e-5, atol=1e-5, msg=k)

@@ -4,9 +4,11 @@ loading by path, streaming, the metrics, the attack simulator, the evals,
 the losses and a few training steps (with lamb, adafactor and the sharded
 checkpoint; and the training entry point's --help), the temporal, pixelwise
 and HiDDeN models and the inflation script, the VAE, DVMark and DINO models,
-the TorchScript baselines and WmForger, and import every
-other module, without them (and without cv2, which the streaming path and the exact
-codecs import only where they need it)."""
+the TorchScript baselines and WmForger, the audio watermark, the card files
+and the PIL-semantics resize, and import every other module, without them
+(and without PIL, and without cv2, which the streaming path and the exact
+codecs import only where they need it). The examples' and notebooks' code
+imports none of jax, yaml, PIL or the JAX package either."""
 
 import os
 import re
@@ -24,7 +26,7 @@ PKG = os.path.join(ROOT, "videoseal_tpu_torch")
 _SCRIPT = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pandas", "videoseal_tpu",
-             "cv2"):
+             "cv2", "PIL"):
     sys.modules[name] = None          # any import of these now raises
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -194,12 +196,29 @@ wtrain.main(["--device", "cpu", "--tiny", "1", "--synthetic", "1", "--steps", "1
              "--batch_size", "2", "--img_size", "32", "--output", ck])
 pm = optimize_image.load_preference_model(ck, "cpu")
 assert optimize_image.optimize(torch.rand(32, 32, 3), pm, num_steps=2).shape == (32, 32, 3)
+
+# the audio watermark, the AV entry point, card files, the SA-1B script's
+# resize, the examples and the frames mesh
+from videoseal_tpu_torch import audio_wm, inference_av  # noqa: F401
+from videoseal_tpu_torch.examples import image_watermarking, video_watermarking  # noqa: F401
+from videoseal_tpu_torch.ops.resize import resize_bicubic_pil
+from videoseal_tpu_torch.scripts import make_config, process_sab  # noqa: F401
+wm = audio_wm.SpreadSpectrumAudio(nbits=8, device="cpu")
+pcm = np.random.default_rng(5).normal(0, 0.1, (2, 48000)).astype(np.float32)
+msg = wm.get_random_msg(torch.Generator().manual_seed(0))
+assert torch.equal(wm.detect(wm.embed(pcm, 48000, msg), 48000)[0], msg)
+card_path = os.path.join(tmp, "card.yaml")
+with open(card_path, "w") as f:
+    f.write(make_config.dumps(tiny_card(img_size=64)))
+assert vt.load(card_path, device="cpu").nbits == 16
+assert resize_bicubic_pil(clip[:2], 24, 24).dtype == torch.uint8
+assert mesh.Mesh(rank=1, size=2, frames_rank=1, frames_size=2).rows(1, 2).tolist() == [6, 7]
 print("OK")
 """
 
 _BLOCK = ("import sys\n"
           "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'pandas',"
-          " 'videoseal_tpu', 'cv2'):\n"
+          " 'videoseal_tpu', 'cv2', 'PIL'):\n"
           "    sys.modules[name] = None\n")
 
 
@@ -238,7 +257,7 @@ def test_native_tree_untouched():
 
 
 def test_package_source_imports_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|yaml|pandas|"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|yaml|pandas|PIL|"
                      r"videoseal_tpu)\b",
                      re.MULTILINE)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
@@ -251,3 +270,22 @@ def test_package_source_imports_no_jax():
             src = f.read()
         assert not pat.search(src), f"{path} imports {pat.search(src).group(0)}"
         assert not top_cv2.search(src), f"{path} imports cv2 at module level"
+
+
+def test_notebooks_import_no_jax():
+    """The port's notebooks' code cells import none of jax, yaml, PIL or the
+    JAX package, and set the device in their first code cell."""
+    import json
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|yaml|pandas|PIL|"
+                     r"matplotlib|videoseal_tpu)\b", re.MULTILINE)
+    nb_dir = os.path.join(PKG, "notebooks")
+    names = sorted(f for f in os.listdir(nb_dir) if f.endswith(".ipynb"))
+    assert names == ["av_inference.ipynb", "image_inference.ipynb", "video_inference.ipynb",
+                     "video_inference_streaming.ipynb"]
+    for name in names:
+        with open(os.path.join(nb_dir, name)) as f:
+            code = ["".join(c["source"]) for c in json.load(f)["cells"]
+                    if c["cell_type"] == "code"]
+        assert 'device = "cuda"' in code[0], name
+        for cell in code:
+            assert not pat.search(cell), f"{name} imports {pat.search(cell).group(0)}"

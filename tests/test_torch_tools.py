@@ -155,6 +155,16 @@ def test_doaugs_writes_every_row(tmp_path, is_video):
     from videoseal_tpu_torch.augmentation import doaugs
     from videoseal_tpu_torch.augmentation.validation import get_validation_augs
     written = doaugs.main(["--out_dir", str(tmp_path), "--img_size", "64", "--is_video",
-                           str(is_video)])
+                           str(is_video), "--device", "cpu"])
     assert len(written) == sum(len(s) for _, s in get_validation_augs(bool(is_video)))
     assert all(os.path.getsize(p) > 0 for p in written)
+
+
+def test_doaugs_defaults_to_the_card(tmp_path, monkeypatch):
+    """Without --device, doaugs runs on the card and, without one, raises
+    naming --device cpu, as train.py does."""
+    from videoseal_tpu_torch.augmentation import doaugs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        doaugs.main(["--out_dir", str(tmp_path), "--img_size", "64"])
+    assert not os.listdir(tmp_path)

@@ -403,8 +403,8 @@ def test_train_main_refuses():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--tiny", "1"])
     base = ["--device", "cpu", "--tiny", "1"]
-    # a frames axis is the one part of ROADMAP 1.8 left
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.8"):
+    # a frames axis needs a process group of n_data * n_frames ranks
+    with pytest.raises(ValueError, match="without a process group"):
         make_mesh(n_frames=2)
     with pytest.raises(ValueError, match="JSON"):
         train.main(base + ["--augmentation_config", "augs.yaml"])

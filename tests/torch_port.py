@@ -162,7 +162,7 @@ TRAIN_EXT_CFG = {"encoder": {"depths": [1, 1, 1, 1], "dims": [8, 16, 32, 64]},
                                    "embed_dim": 64, "sigmoid_output": False}}
 
 
-def train_weights():
+def train_weights(nbits: int = TRAIN_NBITS, size: int = TRAIN_SIZE):
     """(embedder, extractor, discriminator) JAX variables as numpy: the
     port's seeded init carried over by the weight bridge, BatchNorm
     statistics and GRN randomised (a JAX init would compile for ~15 s)."""
@@ -171,8 +171,8 @@ def train_weights():
     from videoseal_tpu_torch.models.videoseal import init_weights
     from videoseal_tpu_torch.modules.discriminator import NLayerDiscriminator
     from videoseal_tpu_torch.utils.convert import disc_to_jax, to_jax_variables
-    emb = build_embedder("unet_tiny_yuv", TRAIN_EMB_CFG, TRAIN_NBITS, 2).module
-    ext = build_extractor("convnext_tiny", TRAIN_EXT_CFG, TRAIN_SIZE, TRAIN_NBITS).module
+    emb = build_embedder("unet_tiny_yuv", TRAIN_EMB_CFG, nbits, 2).module
+    ext = build_extractor("convnext_tiny", TRAIN_EXT_CFG, size, nbits).module
     disc = NLayerDiscriminator(ndf=8, n_layers=2)
     gen = torch.Generator().manual_seed(0)
     for m in (emb, ext, disc):
@@ -183,9 +183,14 @@ def train_weights():
 
 
 def port_train_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0", mesh=None,
-                    augmenter=None):
+                    augmenter=None, nbits: int = TRAIN_NBITS, size: int = TRAIN_SIZE,
+                    video_mode: str = "repeat", conv_layer: str = "conv2d",
+                    dtype: torch.dtype = torch.float32):
     """(TrainerModules, TrainState) of the port at the tiny training card
-    holding `weights`, the dummy augmenter unless one is given."""
+    holding `weights`, the dummy augmenter unless one is given. With
+    `conv_layer` "conv2p1d" the UNet's convolutions mix frames: its weights
+    are the port's seeded init, the temporal convolutions' too. The modules
+    take `dtype`."""
     from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
     from videoseal_tpu_torch.losses.videosealloss import VideoSealLoss
     from videoseal_tpu_torch.models.embedder import build_embedder
@@ -196,18 +201,26 @@ def port_train_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0", mesh=None,
     from videoseal_tpu_torch.parallel.trainer import TrainerModules, create_train_state
     from videoseal_tpu_torch.utils.convert import disc_from_jax, from_jax_variables
 
-    emb = build_embedder("unet_tiny_yuv", TRAIN_EMB_CFG, TRAIN_NBITS, 2).module
-    ext = build_extractor("convnext_tiny", TRAIN_EXT_CFG, TRAIN_SIZE, TRAIN_NBITS).module
+    emb_cfg = copy.deepcopy(TRAIN_EMB_CFG)
+    emb_cfg["unet"]["conv_layer"] = conv_layer
+    emb = build_embedder("unet_tiny_yuv", emb_cfg, nbits, 2).module
+    ext = build_extractor("convnext_tiny", TRAIN_EXT_CFG, size, nbits).module
     disc = NLayerDiscriminator(ndf=8, n_layers=2)
     esd, xsd = from_jax_variables(weights[0], weights[1])
-    emb.load_state_dict(esd)
+    if conv_layer == "conv2d":
+        emb.load_state_dict(esd)
+    else:
+        from videoseal_tpu_torch.models.videoseal import init_weights
+        init_weights(emb, torch.Generator().manual_seed(0))
     ext.load_state_dict(xsd)
     disc.load_state_dict(disc_from_jax(weights[2]))
+    for m in (emb, ext, disc):
+        m.to(dtype)
     mods = TrainerModules(
         embedder=emb, extractor=ext, discriminator=disc,
         augmenter=augmenter or get_dummy_augmenter(), attenuation=JND(),
-        cfg=PipelineConfig(img_size=TRAIN_SIZE, chunk_size=4, step_size=2, yuv=True,
-                           nbits=TRAIN_NBITS),
+        cfg=PipelineConfig(img_size=size, chunk_size=4, step_size=2, yuv=True, nbits=nbits,
+                           video_mode=video_mode),
         loss=VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
                            decode_weight=1.0, detect_weight=0.0),
         balanced=balanced, mesh=mesh)
@@ -249,14 +262,72 @@ def rank_train_steps(rank, weights, cases):
     return out
 
 
+def rank_counted_step(rank, weights, imgs):
+    """One balanced image step at SGD lr 1 on a process group of one rank:
+    its record, the all-reduces the step made, and whether every BatchNorm
+    took the group."""
+    import torch.distributed as dist
+
+    from videoseal_tpu_torch.modules.common import BatchNorm2d
+    from videoseal_tpu_torch.parallel.mesh import make_mesh
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    torch.set_num_threads(1)
+    mods, state = port_train_mods(weights, True, mesh=make_mesh())
+    bns = [m for m in state.embedder.modules() if isinstance(m, BatchNorm2d)]
+    calls, all_reduce = [], dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        _, logs = make_train_step(mods)(state, {"imgs": torch.from_numpy(imgs)},
+                                        torch.Generator().manual_seed(1))
+    finally:
+        dist.all_reduce = all_reduce
+    return {"record": step_record(state, logs), "all_reduces": len(calls),
+            "bn_layers": len(bns), "bn_grouped": all(m.group is not None for m in bns)}
+
+
+def rank_frames_steps(rank, n_data, n_frames, cases):
+    """Run on each rank of an n_data x n_frames mesh: its facts, then for
+    each case (weights, imgs (V, F, H, W, 3), msgs or None, balanced,
+    video_mode, conv_layer, augs config or None, generator seed, nbits,
+    size) one SGD step at lr 1 on the rank's block of the clips, the
+    modules in the images' dtype."""
+    from videoseal_tpu_torch.augmentation.augmenter import build_augmenter
+    from videoseal_tpu_torch.parallel.mesh import gather_frames, make_mesh, shard_batch
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    torch.set_num_threads(1)
+    mesh = make_mesh(n_data, n_frames)
+    clips = torch.arange(n_data * 4 * n_frames * 2, dtype=torch.float32).reshape(
+        n_data, 4 * n_frames, 2)
+    facts = {"axes": (mesh.rank, mesh.size, mesh.frames_rank, mesh.frames_size, mesh.world),
+             "clip": gather_frames(shard_batch(mesh, clips, frames_axis=1), mesh),
+             "want": clips[mesh.shard(n_data)]}
+    out = []
+    for weights, imgs, msgs, balanced, mode, conv, augs, seed, nbits, size in cases:
+        aug = build_augmenter(augs, num_augs=2) if augs else None
+        mods, state = port_train_mods(weights, balanced, mesh=mesh, augmenter=aug, nbits=nbits,
+                                      size=size, video_mode=mode, conv_layer=conv,
+                                      dtype=torch.from_numpy(imgs[:0]).dtype)
+        step = make_train_step(mods, is_video=True)
+        _, logs = step(state, {"imgs": shard_batch(mesh, torch.from_numpy(imgs), frames_axis=1)},
+                       torch.Generator().manual_seed(seed),
+                       msgs=None if msgs is None else torch.from_numpy(msgs))
+        out.append(step_record(state, logs))
+    return facts, out
+
+
 def rank_collectives(rank, x, tmp):
     """The BatchNorm, gather, metric and checkpoint collectives on a rank."""
     import torch.nn.functional as F
 
     from videoseal_tpu_torch.modules.common import BatchNorm2d
-    from videoseal_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+    from videoseal_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from videoseal_tpu_torch.utils import checkpoint as ckpt_io
-    from videoseal_tpu_torch.utils.dist import average_metrics
+    from videoseal_tpu_torch.utils.dist import average_metrics, gather_rows
     from videoseal_tpu_torch.utils.logger import MetricLogger
     mesh = make_mesh()
     bn = BatchNorm2d(x.shape[1])
@@ -268,7 +339,7 @@ def rank_collectives(rank, x, tmp):
     y = bn(xl)
     w = torch.linspace(-1, 1, y.numel()).view(y.shape[::-1]).permute(3, 2, 1, 0) + rank
     F.relu(y * w).sum().backward()
-    g = gather_batch(xl * 2.0, mesh)
+    g = gather_rows(xl * 2.0, mesh.rows(xl.shape[0]), xl.shape[0] * mesh.world, mesh.group)
     logger = MetricLogger()
     logger.update(a=float(rank), b=1.0)
     logger.sync()

@@ -86,20 +86,24 @@ class Augmenter:
         return [a.name for a in (self.augs_video if is_video else self.augs)]
 
     def __call__(self, generator: torch.Generator, imgs_w, imgs, masks=None,
-                 is_video: bool = False, train: bool = True, mesh=None):
+                 is_video: bool = False, train: bool = True, mesh=None, frames: int = 1):
         """Returns (imgs_aug, mask_targets, [selected index, ...]).
 
-        With a data-parallel `mesh` (``parallel.mesh.Mesh``; the images are
-        this rank's rows of the global batch) every rank makes the same
-        draws: the aug choice, parameters drawn for the global batch's
-        shape and sliced to the rank's rows, and an aug that mixes frames
-        applied to the gathered global batch. The result is the rank's rows
-        of what one process gets on the whole batch."""
+        On a `mesh` (``parallel.mesh.Mesh``; the images are this rank's rows
+        of the global batch, flattened from its clips of `frames` frames on
+        a frames axis) every rank makes the same draws: the aug choice,
+        parameters drawn for the global batch's shape and taken at the
+        rank's rows, and an aug that mixes frames applied to the global
+        batch gathered over every rank in (data, frames) order. The result
+        is the rank's rows of what one process gets on the whole batch."""
+        rows = None
+        if mesh is not None and mesh.world > 1:
+            rows = mesh.rows(imgs_w.shape[0] // frames, frames)
         augs = self.augs_video if is_video else self.augs
         probs = torch.as_tensor(self.probs_video if is_video else self.probs,
                                 dtype=torch.float64, device=generator.device)
         if train:
-            mask_targets = self.mask_sampler(generator, imgs_w, masks, mesh)
+            mask_targets = self.mask_sampler(generator, imgs_w, masks, rows, mesh)
             imgs_aug = imgs_w * mask_targets + imgs * (1 - mask_targets)
         else:
             mask_targets = torch.ones_like(imgs_w[..., 0:1])
@@ -107,27 +111,28 @@ class Augmenter:
         selected = []
         for _ in range(self.num_augs):
             idx = int(torch.multinomial(probs, 1, generator=generator))
-            if mesh is None or mesh.size == 1:
+            if rows is None:
                 imgs_aug, mask_targets = augs[idx].apply(generator, imgs_aug, mask_targets)
             else:
                 imgs_aug, mask_targets = _apply_sharded(augs[idx], generator, imgs_aug,
-                                                        mask_targets, mesh)
+                                                        mask_targets, rows, mesh)
             selected.append(idx)
         return imgs_aug, mask_targets, selected
 
 
-def _apply_sharded(aug, generator, img, mask, mesh):
-    """`aug` on a rank's rows of the global batch, with the draws of the
-    whole batch."""
-    from ..parallel.mesh import gather_batch
-    n = img.shape[0]
-    rows = mesh.shard(n * mesh.size)
-    params = aug.sample(generator, img.new_empty((n * mesh.size,) + tuple(img.shape[1:]),
+def _apply_sharded(aug, generator, img, mask, rows, mesh):
+    """`aug` on a rank's rows (global indices `rows`) of the global batch,
+    with the draws of the whole batch."""
+    from ..utils.dist import gather_rows
+    total = img.shape[0] * mesh.world
+    params = aug.sample(generator, img.new_empty((total,) + tuple(img.shape[1:]),
                                                  device="meta"))
     if not aug.couples_samples:
         return aug.transform(img, mask, aug.shard_params(params, rows))
-    out, out_mask = aug.transform(gather_batch(img, mesh), gather_batch(mask, mesh), params)
-    return out[rows], out_mask[rows]
+    out, out_mask = aug.transform(gather_rows(img, rows, total, mesh.all_group),
+                                  gather_rows(mask, rows, total, mesh.all_group), params)
+    idx = rows.to(out.device)
+    return out[idx], out_mask[idx]
 
 
 def get_dummy_augmenter() -> Augmenter:

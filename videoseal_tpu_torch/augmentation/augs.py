@@ -67,7 +67,7 @@ class Aug:
     def sample(self, generator: torch.Generator, img: torch.Tensor):
         return None
 
-    def shard_params(self, params, rows: slice):
+    def shard_params(self, params, rows: torch.Tensor):
         return params
 
     def transform(self, img, mask, params):
@@ -409,9 +409,9 @@ class GaussianNoise(Aug):
         std, noise = params
         return img + std * noise.to(img.device, img.dtype), mask
 
-    def shard_params(self, params, rows: slice):
+    def shard_params(self, params, rows: torch.Tensor):
         std, noise = params
-        return std, noise[rows]
+        return std, noise[rows.to(noise.device)]
 
     def apply_strength(self, img, mask, strength):
         noise = torch.randn(tuple(img.shape), generator=eval_generator())

@@ -6,6 +6,9 @@ cv2. An attack that cannot run at the sample's size is reported and left
 out.
 
   python -m videoseal_tpu_torch.augmentation.doaugs [--image path] [--out_dir dir]
+      [--device cpu]
+
+The attacks run on the CUDA device unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -24,8 +27,11 @@ def main(argv=None) -> list[str]:
     ap.add_argument("--is_video", type=int, default=0)
     ap.add_argument("--img_size", type=int, default=256,
                     help="the synthetic sample's size (without --image)")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.device != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError("doaugs runs on the CUDA device by default and none is available; "
+                           "pass --device cpu to run it on the CPU")
 
     from ..utils.display import save_img
     from .validation import get_validation_augs

@@ -104,17 +104,18 @@ _MIXED = (_ones, _rects, _blob, _outpaint)
 
 
 def build_mask_sampler(cfg: dict):
-    """sampler(generator, imgs_w, masks, mesh=None) -> (B, H, W, 1) float
-    mask, from cfg = {'kind': none|full|rect|blob|outpaint|mixed|segmentation,
-    'invert_proba': p}. 'segmentation' passes the dataset's masks through
-    (all ones without them). With a data-parallel `mesh` (imgs_w a rank's
-    rows) the masks are drawn for the global batch and the rank's rows
-    returned, so every rank draws the same numbers."""
+    """sampler(generator, imgs_w, masks, rows=None, mesh=None) -> (B, H, W, 1)
+    float mask, from cfg = {'kind': none|full|rect|blob|outpaint|mixed|
+    segmentation, 'invert_proba': p}. 'segmentation' passes the dataset's
+    masks through (all ones without them). On a `mesh` (imgs_w a rank's
+    rows, at the global indices `rows`) the masks are drawn for the global
+    batch and the rank's rows returned, so every rank draws the same
+    numbers."""
     kind = cfg.get("kind", None)
     kind = None if kind in (None, "none", "None") else str(kind)
     invert_p = float(cfg.get("invert_proba", 0.0))
 
-    def ones(generator, imgs_w, masks, mesh=None):
+    def ones(generator, imgs_w, masks, rows=None, mesh=None):
         return torch.ones_like(imgs_w[..., 0:1])
 
     if kind is None or kind == "full":
@@ -122,13 +123,13 @@ def build_mask_sampler(cfg: dict):
     if kind not in (*_FAMILIES, "mixed", "segmentation"):
         raise ValueError(f"mask kind {kind!r}")
 
-    def sampler(generator, imgs_w, masks, mesh=None):
+    def sampler(generator, imgs_w, masks, rows=None, mesh=None):
         if kind == "segmentation":
             return masks if masks is not None else ones(generator, imgs_w, masks)
         b, h, w = imgs_w.shape[0], imgs_w.shape[-3], imgs_w.shape[-2]
-        if mesh is not None and mesh.size > 1:
-            return sampler(generator, imgs_w.new_empty((b * mesh.size, h, w, 1)),
-                           None)[mesh.shard(b * mesh.size)]
+        if rows is not None:
+            full = sampler(generator, imgs_w.new_empty((b * mesh.world, h, w, 1)), None)
+            return full[rows.to(full.device)]
         dev = imgs_w.device
         ms = []
         for _ in range(b):

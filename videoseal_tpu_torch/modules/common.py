@@ -114,10 +114,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, eps, group):
         import torch.distributed as dist
         c, rank, world = x.shape[1], dist.get_rank(group), dist.get_world_size(group)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))   # float64 stays
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         n = float(x.numel() // c)
-        rows = x.new_zeros((world, 2 * c + 1), dtype=torch.float32)
+        rows = x.new_zeros((world, 2 * c + 1), dtype=xf.dtype)
         rows[rank] = torch.cat([mean, var * n, mean.new_full((1,), n)])
         dist.all_reduce(rows, group=group)
         counts = rows[:, -1:]
@@ -129,18 +129,18 @@ class _GlobalBatchNorm(torch.autograd.Function):
         ctx.save_for_backward(xhat, weight, invstd, total)
         ctx.group = group
         ctx.mark_non_differentiable(g_mean, g_var)
-        y = xhat * weight.float()[:, None, None] + bias.float()[:, None, None]
+        y = xhat * weight.to(xf.dtype)[:, None, None] + bias.to(xf.dtype)[:, None, None]
         return y.to(x.dtype), g_mean, g_var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         import torch.distributed as dist
         xhat, weight, invstd, total = ctx.saved_tensors
-        dyf = dy.float()
+        dyf = dy.to(xhat.dtype)
         local = torch.stack([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
         sums = local.clone()
         dist.all_reduce(sums, group=ctx.group)
-        scale = (weight.float() * invstd)[:, None, None]
+        scale = (weight.to(xhat.dtype) * invstd)[:, None, None]
         dx = (dyf - sums[0][:, None, None] / total
               - xhat * (sums[1] / total)[:, None, None]) * scale
         return (dx.to(dy.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype),
@@ -153,10 +153,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     does; torch's own uses the unbiased one, n/(n-1) times larger. The
     state dict is ``nn.BatchNorm2d``'s.
 
-    With `group` set (``parallel.mesh.use_data_group``), train mode
-    normalises with the statistics of the global batch, as the JAX step
-    over a batch sharded on ``data`` does, and its backward carries both
-    cross-rank terms (`_GlobalBatchNorm`)."""
+    With `group` set (``parallel.mesh.use_global_batchnorm``: every rank of
+    the mesh), train mode normalises with the statistics of the global
+    batch, as the JAX step over a sharded batch does, and its backward
+    carries both cross-rank terms (`_GlobalBatchNorm`). A rank may hold a
+    copy of the whole batch (``apply_whole_batch``): every rank holding the
+    same copy leaves the mean, the biased variance and, once the copies'
+    input gradients are summed, the backward as they are."""
 
     group = None
 
@@ -375,3 +378,17 @@ def mixes_frames(module: nn.Module) -> bool:
     frames (a temporal or 3D convolution, temporal attention: each sets
     ``mixes_frames``)?"""
     return any(getattr(m, "mixes_frames", False) for m in module.modules())
+
+
+def apply_whole_batch(module: nn.Module, mesh, rows: torch.Tensor, total: int, *inputs):
+    """`module(*inputs)`, each input this rank's `rows` of a global batch of
+    `total` rows (``parallel.mesh.Mesh.rows``). A module that mixes frames
+    treats the batch axis as time, so on a mesh it runs on the whole batch
+    in (data, frames) order, gathered differentiably over every rank, and
+    this rank's rows of its output come back; any other module runs on the
+    rank's rows."""
+    if mesh is None or mesh.world == 1 or not mixes_frames(module):
+        return module(*inputs)
+    from ..utils.dist import gather_rows
+    out = module(*(gather_rows(x, rows, total, mesh.all_group) for x in inputs))
+    return out[rows.to(out.device)]

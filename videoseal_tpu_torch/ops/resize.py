@@ -116,3 +116,66 @@ def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     y = torch.einsum("Hh,...hwc->...Hwc", mh, x.float())
     y = torch.einsum("Ww,...hwc->...hWc", mw, y)
     return y.to(x.dtype)
+
+
+_PIL_BITS = 22      # Pillow's PRECISION_BITS for 8-bit images: 32 - 8 - 2
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter, Keys' kernel at a = -0.5."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+@functools.lru_cache(maxsize=64)
+def _pil_cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) float64 matrix of Pillow's fixed-point bicubic
+    coefficients (integers on the 2^22 scale), built as its
+    ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` build them: the
+    filter stretched by the downscale factor (antialiased), each row's
+    weights normalised by their sum in order, then rounded half away from
+    zero."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ss = 1.0 / filterscale
+    mat = np.zeros((out_size, in_size), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        w = _pil_bicubic((np.arange(xmin, xmax) - center + 0.5) * ss)
+        ww = 0.0
+        for v in w:             # Pillow sums in order
+            ww += v
+        if ww != 0.0:
+            w = w / ww
+        w = w * (1 << _PIL_BITS)
+        mat[xx, xmin:xmax] = np.trunc(np.where(w < 0, w - 0.5, w + 0.5))
+    return mat
+
+
+def _pil_pass(y: torch.Tensor, mat: np.ndarray, eq: str) -> torch.Tensor:
+    """One of Pillow's passes on integer-valued float64: the fixed-point
+    sums (exact in float64), + 2^21, shifted down, clipped to u8."""
+    k = torch.as_tensor(mat, device=y.device)
+    y = torch.einsum(eq, k, y)
+    return torch.clamp(torch.floor((y + (1 << (_PIL_BITS - 1))) / (1 << _PIL_BITS)), 0, 255)
+
+
+def resize_bicubic_pil(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize u8 (..., H, W, C) to (..., out_h, out_w, C) as Pillow's
+    ``Image.resize((out_w, out_h))`` does at its default filter (bicubic,
+    a = -0.5, antialiased): the horizontal pass first into u8, then the
+    vertical one, each in Pillow's 22-bit fixed point, on x's device. The
+    integer sums are exact in float64, so the result is Pillow's to the
+    last bit wherever its coefficients are."""
+    h, w = x.shape[-3], x.shape[-2]
+    y = x.to(torch.float64)
+    if w != out_w:
+        y = _pil_pass(y, _pil_cubic_matrix(w, out_w), "Ww,...hwc->...hWc")
+    if h != out_h:
+        y = _pil_pass(y, _pil_cubic_matrix(h, out_h), "Hh,...hwc->...Hwc")
+    return y.to(torch.uint8)

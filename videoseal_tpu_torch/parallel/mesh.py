@@ -1,12 +1,12 @@
-"""The data-parallel mesh, counterpart of ``videoseal_tpu/parallel/mesh.py``
+"""The ("data", "frames") mesh, counterpart of ``videoseal_tpu/parallel/mesh.py``
 on ``torch.distributed.device_mesh``.
 
-The JAX package shards the batch on a ``data`` axis of a device mesh and
-lets XLA insert the collectives; the port runs one process per rank, each
-on its contiguous slice of the global batch, and reduces explicitly
-(``parallel/trainer.py``, ``modules/common.BatchNorm2d``, ``utils/dist``).
-Only the ``data`` axis is carried: a ``frames`` axis needs collectives in
-the video-mode expand and the per-clip message aggregate (ROADMAP.md 1.8).
+The JAX package shards a batch on the ``data`` axis of a device mesh (a
+video batch's frames, optionally, on ``frames``) and lets XLA insert the
+collectives; the port runs one process per rank, each on its contiguous
+block of the global batch, and reduces explicitly (``parallel/trainer.py``,
+``modules/common.BatchNorm2d``, ``augmentation/augmenter.py``). Rank r sits
+at (r // n_frames, r % n_frames): the ranks of one clip are neighbours.
 """
 
 from __future__ import annotations
@@ -16,69 +16,110 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from ..utils.dist import all_reduce_sum
+from ..utils.dist import gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on the data axis: its group (None for one
-    process without a process group), rank and the axis's size."""
-    group: object = None
+    """This rank's place on the mesh: each axis's group (None for one
+    process without a process group), its rank and its size, and the group
+    of every rank (`all_group`)."""
+    group: object = None         # the data axis
     rank: int = 0
     size: int = 1
     device_mesh: object = None
+    frames_group: object = None
+    frames_rank: int = 0
+    frames_size: int = 1
+    all_group: object = None
+
+    @property
+    def world(self) -> int:
+        return self.size * self.frames_size
 
     def shard(self, n: int) -> slice:
-        """This rank's rows of a global batch of `n` (contiguous, equal)."""
-        if n % self.size:
-            raise ValueError(f"a global batch of {n} does not split over {self.size} ranks")
-        k = n // self.size
-        return slice(self.rank * k, (self.rank + 1) * k)
+        """This rank's rows of a global batch of `n` on the data axis
+        (contiguous, equal)."""
+        return _block(n, self.rank, self.size)
+
+    def frames_shard(self, n: int) -> slice:
+        """This rank's frames of a clip of `n` on the frames axis."""
+        return _block(n, self.frames_rank, self.frames_size)
+
+    def rows(self, clips: int, frames: int = 1) -> torch.Tensor:
+        """The global indices of this rank's rows of a batch flattened from
+        (clips, frames), the rank holding `clips` clips of `frames` frames:
+        the global batch is (clips * size, frames * frames_size) in that
+        order. On the CPU; a frames axis needs `frames` > 1 or a rank would
+        hold a copy of its frames neighbours' rows."""
+        f_all = frames * self.frames_size
+        clip = torch.arange(self.rank * clips, (self.rank + 1) * clips)
+        frame = torch.arange(self.frames_rank * frames, (self.frames_rank + 1) * frames)
+        return (clip[:, None] * f_all + frame[None]).reshape(-1)
+
+
+def _block(n: int, rank: int, size: int) -> slice:
+    if n % size:
+        raise ValueError(f"a global batch of {n} does not split over {size} ranks")
+    k = n // size
+    return slice(rank * k, (rank + 1) * k)
 
 
 def make_mesh(n_data: int | None = None, n_frames: int = 1,
               device_type: str | None = None) -> Mesh:
-    """A mesh over ("data", "frames") with every rank on the data axis;
-    without a process group, the one-process mesh."""
-    if n_frames != 1:
-        raise NotImplementedError("a frames axis (n_frames > 1): ROADMAP.md 1.8")
+    """A mesh over ("data", "frames") of n_data x n_frames ranks (n_data
+    defaults to the world size over n_frames); without a process group,
+    the one-process mesh."""
     if not (dist.is_available() and dist.is_initialized()):
-        if n_data not in (None, 1):
-            raise ValueError(f"n_data={n_data} without a process group")
+        if n_data not in (None, 1) or n_frames != 1:
+            raise ValueError(f"a {n_data}x{n_frames} mesh without a process group")
         return Mesh()
     world = dist.get_world_size()
-    if n_data not in (None, world):
-        raise ValueError(f"n_data={n_data}: every one of the {world} ranks is on the data axis")
+    n_data = world // n_frames if n_data is None else n_data
+    if n_data * n_frames != world:
+        raise ValueError(f"a {n_data}x{n_frames} mesh over {world} ranks")
     from torch.distributed.device_mesh import init_device_mesh
     device_type = device_type or ("cuda" if dist.get_backend() == "nccl" else "cpu")
-    dm = init_device_mesh(device_type, (world, 1), mesh_dim_names=("data", "frames"))
-    return Mesh(group=dm.get_group("data"), rank=dist.get_rank(), size=world, device_mesh=dm)
+    dm = init_device_mesh(device_type, (n_data, n_frames), mesh_dim_names=("data", "frames"))
+    rank = dist.get_rank()
+    return Mesh(group=dm.get_group("data"), rank=rank // n_frames, size=n_data, device_mesh=dm,
+                frames_group=dm.get_group("frames"), frames_rank=rank % n_frames,
+                frames_size=n_frames, all_group=dist.group.WORLD)
 
 
-def shard_batch(mesh: Mesh, batch):
-    """This rank's slice of each array of a global batch (a dict, or one
-    array), on axis 0."""
+def shard_batch(mesh: Mesh, batch, frames_axis: int | None = None):
+    """This rank's block of each array of a global batch (a dict, or one
+    array): axis 0 by data rank and, with `frames_axis`, that axis by
+    frames rank, as the JAX package's `batch_sharding` lays it out."""
     if isinstance(batch, dict):
-        return {k: shard_batch(mesh, v) for k, v in batch.items()}
-    return batch[mesh.shard(batch.shape[0])]
+        return {k: shard_batch(mesh, v, frames_axis) for k, v in batch.items()}
+    batch = batch[mesh.shard(batch.shape[0])]
+    if frames_axis is None or mesh.frames_size == 1:
+        return batch
+    idx = (slice(None),) * frames_axis + (mesh.frames_shard(batch.shape[frames_axis]),)
+    return batch[idx]
 
 
-def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The global batch from every rank's slice of it, differentiably: each
-    rank writes its rows into zeros and the group sums them (gloo reduces
-    CUDA tensors; it has no all-gather into one tensor). The gradient of
-    the local rows is the sum of the ranks' cotangents of those rows."""
-    if mesh.group is None:
+def gather_frames(x: torch.Tensor, mesh: Mesh, start: int | None = None,
+                  total: int | None = None) -> torch.Tensor:
+    """A clip (V, F, ...) from its frames ranks' blocks (V, F_r, ...) on
+    axis 1, differentiably: this rank's block starts at frame `start` of
+    `total` (by default the equal blocks of ``shard_batch``; the ranks'
+    blocks may differ in length, as the key frames of a clip do)."""
+    if mesh.frames_group is None or mesh.frames_size == 1:
         return x
-    full = x.new_zeros((x.shape[0] * mesh.size,) + tuple(x.shape[1:]))
-    idx = torch.arange(mesh.rank * x.shape[0], (mesh.rank + 1) * x.shape[0], device=x.device)
-    return all_reduce_sum(full.index_add(0, idx, x), mesh.group)
+    n = x.shape[1]
+    start = mesh.frames_rank * n if start is None else start
+    total = n * mesh.frames_size if total is None else total
+    moved = x.transpose(0, 1)
+    full = gather_rows(moved, torch.arange(start, start + n), total, mesh.frames_group)
+    return full.transpose(0, 1)
 
 
-def use_data_group(module: torch.nn.Module, mesh: Mesh) -> None:
-    """Point every BatchNorm of `module` at the mesh's data group: in train
-    mode each then normalises with the global batch's statistics."""
+def use_global_batchnorm(module: torch.nn.Module, mesh: Mesh) -> None:
+    """Point every BatchNorm of `module` at the group of every rank: in
+    train mode each then normalises with the global batch's statistics."""
     from ..modules.common import BatchNorm2d
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
-            m.group = mesh.group
+            m.group = mesh.all_group

@@ -14,17 +14,22 @@ extractor takes its differentiable route (``modules/convnext.py``), as the
 JAX step applies the linen modules. It runs in float32, without autocast.
 Video batches are (V, F, H, W, 3) with one message per clip.
 
-Data parallelism (``mods.mesh``, a ``parallel.mesh.Mesh`` with a process
-group): each rank steps on its contiguous slice of the global batch (equal
-slices: the caller refuses a global batch the world size does not divide)
-and the step gives JAX's global-batch result. The messages and every
+Parallelism (``mods.mesh``, a ``parallel.mesh.Mesh`` with a process
+group): each rank steps on its block of the global batch (its clips by data
+rank and, on a frames axis, its frames of each clip by frames rank; equal
+blocks) and the step gives JAX's global-batch result. The messages and every
 augmenter draw are made for the global batch from the same generator state
-on every rank and sliced; BatchNorm normalises with the global batch's
-statistics (``modules/common.BatchNorm2d``); the balance's per-loss
-gradient norms are the square root of the ranks' summed squares (the local
-losses are means over a rank's rows, so each rank's gradient is the size
-times its part of the global one); the gradients are averaged over the
-group by one all-reduce per optimizer, explicitly rather than with
+on every rank and sliced; the key frames are every step_size-th frame of
+the clip by global index (a rank's frame count need not be a multiple of
+step_size), their predictions gathered over the frames axis, expanded by
+video_mode over the clip and sliced back; a module that mixes frames runs
+on the gathered batch (``modules/common.apply_whole_batch``); BatchNorm
+normalises with the global batch's statistics
+(``modules/common.BatchNorm2d``); the balance's per-loss gradient norms are
+the square root of the ranks' summed squares (the local losses are means
+over a rank's rows, so each rank's gradient is the world size times its
+part of the global one); the gradients are averaged over every rank by one
+all-reduce per optimizer, explicitly rather than with
 ``DistributedDataParallel``, whose reducer fires on every backward and
 expects one per forward, where this step takes a gradient per loss and
 runs the discriminator under a functional call; the logs are averaged.
@@ -43,6 +48,7 @@ from torch import nn
 from ..losses.videosealloss import VideoSealLoss
 from ..models.blender import blend
 from ..models.videoseal import PipelineConfig, _expand_video_mode
+from ..modules.common import apply_whole_batch
 from ..modules.jnd import JND
 from ..ops.color import rgb_to_y
 from ..ops.metrics import bit_accuracy, psnr
@@ -89,15 +95,14 @@ def create_train_state(mods: TrainerModules, optimizer_g: str, optimizer_d: str,
     on their device): the generator's over the embedder's and then the
     extractor's parameters, the discriminator's over its own; `schedule`
     (a per-step lr function) drives the generator's under a LambdaLR.
-    With a data group the BatchNorms take it and every rank starts from
-    rank 0's parameters and buffers."""
-    if mods.mesh is not None and mods.mesh.group is not None:
-        from .mesh import use_data_group
-        src = dist.get_global_rank(mods.mesh.group, 0)
+    With a process group (mods.mesh) the BatchNorms take the group of every
+    rank and every rank starts from rank 0's parameters and buffers."""
+    if mods.mesh is not None and mods.mesh.all_group is not None:
+        from .mesh import use_global_batchnorm
         for m in (mods.embedder, mods.extractor, mods.discriminator):
-            use_data_group(m, mods.mesh)
+            use_global_batchnorm(m, mods.mesh)
             for t in m.state_dict().values():
-                dist.broadcast(t, src=src, group=mods.mesh.group)
+                dist.broadcast(t, src=0, group=mods.mesh.all_group)
     gen_params = list(mods.embedder.parameters()) + list(mods.extractor.parameters())
     opt_g = build_optimizer(optimizer_g, gen_params)
     opt_d = build_optimizer(optimizer_d, mods.discriminator.parameters())
@@ -107,27 +112,58 @@ def create_train_state(mods: TrainerModules, optimizer_g: str, optimizer_d: str,
                       scaling_w=float(scaling_w))
 
 
+def key_frames(frames: int, step: int, frames_rank: int = 0) -> tuple[int, int]:
+    """The global key indices [lo, hi) that a frames rank holding frames
+    [frames_rank * frames, (frames_rank + 1) * frames) of its clips embeds:
+    key k is the clip's frame k * step."""
+    first = frames_rank * frames
+    return -(-first // step), -(-(first + frames) // step)
+
+
 def embed_batch(mods: TrainerModules, embedder: nn.Module, imgs: torch.Tensor,
-                msgs: torch.Tensor, is_video: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                msgs: torch.Tensor, is_video: bool, mesh=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(preds_w at the processing size for every frame (N, s, s, C), the
     messages of every frame (N, nbits)): images embed each; clips embed
-    their key frames (every step_size-th) with the clip's message, and the
-    key predictions spread over the clip by video_mode."""
+    their key frames (every step_size-th of the clip) with the clip's
+    message, and the key predictions spread over the clip by video_mode.
+    On a frames axis (`mesh`) imgs holds this rank's frames of its clips:
+    it embeds the keys among them, and the clip's keys, gathered from its
+    frames ranks, expand to the whole clip, of which its frames come back."""
     cfg = mods.cfg
-    s = cfg.img_size
+    s, step = cfg.img_size, cfg.step_size
+    on_mesh = mesh is not None and mesh.world > 1
     if not is_video:
         imgs_res = resize_bilinear(imgs, s, s)
-        return embedder(rgb_to_y(imgs_res) if cfg.yuv else imgs_res, msgs), msgs
+        inp = rgb_to_y(imgs_res) if cfg.yuv else imgs_res
+        if not on_mesh:
+            return embedder(inp, msgs), msgs
+        b = imgs.shape[0]
+        return apply_whole_batch(embedder, mesh, mesh.rows(b), b * mesh.world, inp, msgs), msgs
     v, f = imgs.shape[0], imgs.shape[1]
+    nf, fr = (mesh.frames_size, mesh.frames_rank) if on_mesh else (1, 0)
+    lo, hi = key_frames(f, step, fr)
+    if hi == lo:
+        raise ValueError(f"frames rank {fr} holds frames {fr * f}..{fr * f + f - 1}: no key "
+                         f"frame of step_size {step}")
+    n_keys, k = -(-f * nf // step), hi - lo
     res = resize_bilinear(imgs.reshape((v * f,) + tuple(imgs.shape[2:])), s, s)
-    keys_in = res.reshape(v, f, s, s, 3)[:, ::cfg.step_size]
-    k = keys_in.shape[1]
+    keys_in = res.reshape(v, f, s, s, 3)[:, lo * step - fr * f::step]
     keys_flat = keys_in.reshape(v * k, s, s, 3)
-    preds_k = embedder(rgb_to_y(keys_flat) if cfg.yuv else keys_flat,
-                       msgs.repeat_interleave(k, dim=0))
+    inp, key_msgs = rgb_to_y(keys_flat) if cfg.yuv else keys_flat, msgs.repeat_interleave(k, 0)
+    if on_mesh:
+        # the global batch of keys is (clips, n_keys); this rank's are [lo, hi)
+        rows = (torch.arange(mesh.rank * v, (mesh.rank + 1) * v)[:, None] * n_keys
+                + torch.arange(lo, hi)[None]).reshape(-1)
+        preds_k = apply_whole_batch(embedder, mesh, rows, v * mesh.size * n_keys, inp, key_msgs)
+    else:
+        preds_k = embedder(inp, key_msgs)
     preds_k = preds_k.reshape((v, k) + tuple(preds_k.shape[1:]))
-    preds_w = torch.stack([_expand_video_mode(p, f, cfg.step_size, cfg.video_mode)
-                           for p in preds_k])
+    if on_mesh:
+        from .mesh import gather_frames
+        preds_k = gather_frames(preds_k, mesh, lo, n_keys)
+    preds_w = torch.stack([_expand_video_mode(p, f * nf, step, cfg.video_mode)
+                           for p in preds_k])[:, fr * f:(fr + 1) * f]
     return preds_w.reshape((v * f,) + tuple(preds_w.shape[2:])), msgs.repeat_interleave(f, dim=0)
 
 
@@ -151,14 +187,14 @@ def _frozen(module: nn.Module) -> Callable:
 
 
 def _average_grads(params, mesh) -> None:
-    """Each gradient replaced by its mean over the data group: one
-    all-reduce of the gradients laid end to end."""
+    """Each gradient replaced by its mean over every rank: one all-reduce
+    of the gradients laid end to end."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.group)
-    flat /= mesh.size
+    dist.all_reduce(flat, group=mesh.all_group)
+    flat /= mesh.world
     for g, v in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(v.view_as(g))
 
@@ -166,8 +202,8 @@ def _average_grads(params, mesh) -> None:
 def _average_logs(logs: dict, mesh) -> dict:
     keys = [k for k, v in logs.items() if isinstance(v, torch.Tensor)]
     vec = torch.stack([logs[k].detach().float().reshape(()) for k in keys])
-    dist.all_reduce(vec, group=mesh.group)
-    return {**logs, **dict(zip(keys, (vec / mesh.size).unbind()))}
+    dist.all_reduce(vec, group=mesh.all_group)
+    return {**logs, **dict(zip(keys, (vec / mesh.world).unbind()))}
 
 
 def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "both") -> Callable:
@@ -179,14 +215,19 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
     the messages instead. mode: "both" (the reference's default), "gen" or
     "disc" (the sleepwake alternation). After the step each parameter's
     .grad holds the gradient its optimizer took (None where none did).
-    With a data group (mods.mesh) the batch is this rank's rows and `msgs`,
-    when given, the global batch's."""
+    On a mesh (mods.mesh) the batch is this rank's block (``shard_batch``;
+    a video batch's frames on axis 1 where the mesh has a frames axis) and
+    `msgs`, when given, the global batch's."""
     if mode not in ("both", "gen", "disc"):
         raise ValueError(f"mode must be both, gen or disc, got {mode!r}")
     cfg, loss_cfg = mods.cfg, mods.loss
     s = cfg.img_size
-    mesh = mods.mesh if mods.mesh is not None and mods.mesh.group is not None else None
+    # the collectives run wherever there is a process group, one rank too;
+    # the gathers only where a rank holds part of the batch
+    mesh = mods.mesh if mods.mesh is not None and mods.mesh.all_group is not None else None
     size = mesh.size if mesh is not None else 1
+    if mesh is not None and mesh.frames_size > 1 and not is_video:
+        raise ValueError("an image batch has no frames to shard: make_mesh(n_frames=1)")
     gen_params = lambda st: list(st.embedder.parameters()) + list(st.extractor.parameters())
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
@@ -209,11 +250,19 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
 
         # the forward runs with grad in every mode, so that the extractor
         # takes the modules' route (no kernel), as the JAX step's does
-        preds_w, msgs_frames = embed_batch(mods, state.embedder, imgs, msgs, is_video)
+        preds_w, msgs_frames = embed_batch(mods, state.embedder, imgs, msgs, is_video, mesh)
         imgs_w = watermark(mods, imgs_flat, preds_w, state.scaling_w)
+        frames = imgs.shape[1] if is_video else 1
         imgs_aug, mask_t, _ = mods.augmenter(generator, imgs_w, imgs_flat, masks_flat,
-                                             is_video=is_video, train=True, mesh=mesh)
-        preds = state.extractor(resize_bilinear(imgs_aug, s, s)) / mods.temperature
+                                             is_video=is_video, train=True, mesh=mesh,
+                                             frames=frames)
+        x = resize_bilinear(imgs_aug, s, s)
+        if mesh is not None:
+            rows = mesh.rows(imgs.shape[0], frames)
+            preds = apply_whole_batch(state.extractor, mesh, rows, len(rows) * mesh.world, x)
+        else:
+            preds = state.extractor(x)
+        preds = preds / mods.temperature
         if preds.dim() == 4 and tuple(preds.shape[1:3]) != tuple(mask_t.shape[1:3]):
             # a pixelwise map on a coarser grid than the frames (convnext_tiny_pw:
             # 32x down, 16x up) is held to the mask's share of each of its pixels
@@ -233,8 +282,9 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
                               else torch.zeros((), device=v.device))
                 sq = torch.stack(sq)
                 if mesh is not None:
-                    dist.all_reduce(sq, group=mesh.group)
-                grad_norms = dict(zip(losses, (torch.sqrt(sq) / size).unbind()))
+                    dist.all_reduce(sq, group=mesh.all_group)
+                world = mesh.world if mesh is not None else 1
+                grad_norms = dict(zip(losses, (torch.sqrt(sq) / world).unbind()))
             total, logs = loss_cfg.combine(losses, weights, grad_norms)
             total.backward()
             if mesh is not None:

@@ -1,7 +1,8 @@
 """Model cards and model construction, counterpart of ``videoseal_tpu/utils/cfg.py``.
 
-`load(name_or_path)` takes a card name (``cards.py``), 'baseline/<method>'
-or a checkpoint path (``.npz`` with an ``__args__`` blob, ``.pth``/``.pt``
+`load(name_or_path)` takes a card name (``cards.py``), a card file (the JSON
+that ``scripts/make_config.py`` writes), 'baseline/<method>' or a
+checkpoint path (``.npz`` with an ``__args__`` blob, ``.pth``/``.pt``
 with ``args``) from whose embedded training args it rebuilds the card, with
 the embedder and extractor presets of ``presets.py``. Nothing is downloaded.
 """
@@ -28,10 +29,24 @@ def available_cards() -> list[str]:
 
 
 def load_card(name: str) -> dict:
+    """A card by name, or read from a card file: JSON text, which is also
+    YAML (``scripts/make_config.py`` writes it into a ``.yaml`` file that
+    the JAX package's `load_card` reads with yaml.safe_load)."""
     name = _ALIASES.get(name, name)
-    if name not in CARDS:
-        raise FileNotFoundError(f"Unknown model card {name!r}; available: {available_cards()}")
-    return copy.deepcopy(CARDS[name])
+    if name in CARDS:
+        return copy.deepcopy(CARDS[name])
+    if name.endswith((".yaml", ".yml", ".json")) or os.path.isfile(name):
+        if not os.path.isfile(name):
+            raise FileNotFoundError(f"no card file {name!r}")
+        with open(name) as f:
+            text = f.read()
+        try:
+            return json.loads(text)
+        except json.JSONDecodeError as e:
+            raise ValueError(f"{name} is not a JSON card: the port reads card files as JSON "
+                             "(scripts/make_config.py writes them), it has no YAML "
+                             "parser") from e
+    raise FileNotFoundError(f"Unknown model card {name!r}; available: {available_cards()}")
 
 
 def setup_model_from_model_card(name: str, checkpoint: str | None = None, device="cuda",

@@ -116,6 +116,16 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+def gather_rows(x: torch.Tensor, rows: torch.Tensor, total: int, group=None) -> torch.Tensor:
+    """A (total, ...) tensor whose rows the group's ranks hold between them,
+    on every rank, differentiably: each rank writes its rows `x` at the
+    global indices `rows` into zeros and the group sums them (gloo reduces
+    CUDA tensors; it has no all-gather into one tensor). The gradient of
+    `x` is the sum of the ranks' cotangents of its rows."""
+    full = x.new_zeros((total,) + tuple(x.shape[1:]))
+    return all_reduce_sum(full.index_add(0, rows.to(x.device), x), group)
+
+
 def average_metrics(metrics: dict, group=None) -> dict:
     """Each metric's mean over the group's ranks (every rank calls it at
     the same point); a single process returns `metrics` as floats."""
