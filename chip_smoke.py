@@ -205,6 +205,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      Phase 21 alone: `python3 -c "import torch, chip_smoke as cs;
      smi, _ = cs.phase_device(); cs.phase_build(); cs.phase_rest(
      torch.device('cuda', 0), smi)"`.
+ 22. the scorer, `videoseal_tpu_torch.bench` (root bench.py's protocol):
+     at its defaults (videoseal_1.0 in bf16, 128 planar u8 1080p frames,
+     the scored lowres mode and the full-res mode; K1 32, K2 2,304), then
+     NHWC at 32 frames in the lowres mode (K2 288) and in the full-res
+     mode (K4 16, K2 288); each JSON line printed, the scored value within
+     BENCH_FPS_RTOL of phase 5's scored fps; then STAGE_A_STEPS steps of
+     docs/training.md's stage A flags through train.main (32 bits, 128 px,
+     batch 32, the identity pool by its YAML file's name: no kernel), every
+     logged value finite, ms a step. Phase 22 alone: `python3 -c "import
+     torch, chip_smoke as cs; smi, _ = cs.phase_device(); cs.phase_build();
+     cs.phase_bench(torch.device('cuda', 0), smi, None)"`.
 Each path runs with every launch count set to 0 just before it and read
 just after. The line before the last holds the kernels' JSON record, the one
 before it the nvidia-smi line; the last line is the device record. Details
@@ -368,6 +379,16 @@ FRAMES_CLIPS, MIX_FLAGS = 2, ("--embedder_model", "unet_small2_yuv_quant_2p1d",
 FRAMES_RUNS = ((1, 2, ("--card", "videoseal_1.0")), (2, 2, ("--card", "videoseal_1.0")),
                (2, 1, MIX_FLAGS))
 WMF_STEPS, WMF_GM_STEPS, WMF_OPT_STEPS, WMF_BATCH = 4, 4, 50, 8
+# phase 22: the scorer's NHWC frames; how far its scored fps may lie from
+# phase 5's (another timing window over other frames of the same call);
+# stage A's flags (docs/training.md:74-80) and the steps run here
+BENCH_NHWC_FRAMES, BENCH_FPS_RTOL, STAGE_A_STEPS = 32, 0.2, 20
+STAGE_A_FLAGS = ("--card", "videoseal_1.0", "--nbits", "32", "--img_size", "128",
+                 "--synthetic", "1", "--batch_size", "32", "--num_augs", "1",
+                 "--lambda_d", "0", "--lambda_i", "0", "--perceptual_loss", "none",
+                 "--scaling_w", "1.0", "--optimizer", "AdamW,lr=5e-4",
+                 "--scheduler", "CosineLRScheduler,lr_min=1e-6,t_initial=15,warmup_t=1",
+                 "--augmentation_config", "videoseal_tpu/configs/augs_identity.yaml")
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -3688,6 +3709,70 @@ def phase_rest(dev, smi: str) -> dict:
     return rec
 
 
+def phase_bench(dev, smi: str, slice_fps: float | None) -> dict:
+    """Phase 22: the port's scorer at its defaults and on NHWC frames in both
+    JND modes, its scored fps against phase 5's; then stage A's first steps
+    through train.main."""
+    import tempfile
+
+    from videoseal_tpu_torch import bench, train
+
+    calls = 1 + 3 * 5           # bench's warm-up, then 3 repeats of 5 calls
+    chunks = math.ceil(F_SLICE / 32)
+    runs = [("planar", [], {"K1": 2 * calls, "K2": 2 * calls * 18 * chunks}),
+            ("nhwc lowres", ["--layout", "nhwc", "--frames", str(BENCH_NHWC_FRAMES)],
+             {"K2": calls * 18}),
+            ("nhwc full-res", ["--layout", "nhwc", "--frames", str(BENCH_NHWC_FRAMES),
+                               "--lowres_attenuation", "0"], {"K2": calls * 18, "K4": calls})]
+    rec = {"launches": {k: 0 for k in kernel_wrappers()}}
+    for tag, argv, want in runs:
+        reset_counts()
+        line = bench.main(argv)
+        got = check_counts(f"bench {tag}", want)
+        rec["launches"] = {k: rec["launches"][k] + got[k] for k in got}
+        log(f"[bench] {tag} ({smi}): {json.dumps(line)}")
+        keys = {"metric", "value", "unit", "runs", "spread_pct"}
+        if tag == "planar":
+            keys |= {"mode", "fullres_jnd_fps", "fullres_jnd_runs"}
+        if set(line) != keys or not all(math.isfinite(v) and v > 0 for v in
+                                        [line["value"], *line["runs"]]):
+            raise AssertionError(f"bench {tag}: line {line}")
+        rec[tag] = line
+    scored = rec["planar"]["value"]
+    if slice_fps is not None:
+        gap = abs(scored - slice_fps) / slice_fps
+        log(f"[bench] scored {scored:.1f} fps against phase 5's {slice_fps:.1f}: "
+            f"{100 * gap:.1f}% apart (limit {100 * BENCH_FPS_RTOL:.0f}%)")
+        if gap > BENCH_FPS_RTOL:
+            raise AssertionError(f"bench: scored {scored} fps, phase 5 {slice_fps}")
+    torch.cuda.empty_cache()
+
+    # stage A's first steps: the flags as the recipe gives them, the identity
+    # pool taken by its YAML file's name
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stagea_") as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _, step_ms = train.main(list(STAGE_A_FLAGS) + [
+            "--steps", str(STAGE_A_STEPS), "--output_dir", tmp])
+        wall = time.perf_counter() - t0
+        check_counts("stage A", {})
+        logged = [json.loads(ln) for ln in open(os.path.join(tmp, "log.txt"))]
+    if state.step != STAGE_A_STEPS or not logged or not all(
+            math.isfinite(v) for r in logged for v in r.values()):
+        raise AssertionError(f"stage A: step {state.step}, log {logged}")
+    del state
+    torch.cuda.empty_cache()
+    med = float(np.median(step_ms[2:]))
+    log(f"[bench] {smi} | stage A (videoseal_1.0, 32 bits, batch 32 at 128x128, identity "
+        f"pool, decode loss only; TF32 cudnn={torch.backends.cudnn.allow_tf32} "
+        f"matmul={torch.backends.cuda.matmul.allow_tf32}): {med:.2f} ms a step (CUDA "
+        f"events, median of steps 3-{STAGE_A_STEPS}; the first two "
+        f"{[round(t, 1) for t in step_ms[:2]]}), main() wall {wall:.1f} s; last log "
+        f"{json.dumps(logged[-1])}")
+    rec["stage_a"] = {"median_ms": med, "step_ms": step_ms, "wall_s": wall, "log": logged}
+    return rec
+
+
 def _is_elementwise(name: str) -> bool:
     return "elementwise" in name
 
@@ -3773,6 +3858,7 @@ def check_launches(tag: str, order: list, want: tuple | None = None,
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     smi, kind = phase_device()
     dev = torch.device("cuda", 0)
     rec = {"device": smi, "build": phase_build()}
@@ -3795,6 +3881,7 @@ def main() -> int:
     rec["presets"] = phase_presets(dev, smi)
     rec["last"] = phase_last(dev, smi)
     rec["rest"] = phase_rest(dev, smi)
+    rec["bench"] = phase_bench(dev, smi, rec["slice"]["scored"]["fps"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
@@ -3802,7 +3889,7 @@ def main() -> int:
     paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
                                             "attacks", "train", "dist", "presets", "last",
-                                            "rest")]
+                                            "rest", "bench")]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     measured = {"K1": rec["K1"], "K2": rec["K2"], "K3": rec["K3"],
                 **{k: rec["jnd"][k] for k in ("K4", "K5", "K6")},
@@ -3835,6 +3922,7 @@ def main() -> int:
                      (0, ("fused_planar.cu", "blend_up.cuh", "jnd_heat.cuh")),
                      (3, ("jnd_up.cu", "blend_up.cuh", "jnd_heat.cuh"))):
         kernels[i]["sources"] = [f"videoseal_tpu_torch/csrc/{f}" for f in files]
+    log(f"[main] every phase in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

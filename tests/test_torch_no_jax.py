@@ -5,7 +5,8 @@ the losses and a few training steps (with lamb, adafactor and the sharded
 checkpoint; and the training entry point's --help), the temporal, pixelwise
 and HiDDeN models and the inflation script, the VAE, DVMark and DINO models,
 the TorchScript baselines and WmForger, the audio watermark, the card files
-and the PIL-semantics resize, and import every other module, without them
+and the PIL-semantics resize, the package-level exports, the scorer
+(``bench``) and the detect-input eval, and import every other module, without them
 (and without PIL, and without cv2, which the streaming path and the exact
 codecs import only where they need it). The examples' and notebooks' code
 imports none of jax, yaml, PIL or the JAX package either."""
@@ -213,6 +214,33 @@ with open(card_path, "w") as f:
 assert vt.load(card_path, device="cpu").nbits == 16
 assert resize_bicubic_pil(clip[:2], 24, 24).dtype == torch.uint8
 assert mesh.Mesh(rank=1, size=2, frames_rank=1, frames_size=2).rows(1, 2).tolist() == [6, 7]
+
+# the package-level names (their import builds no CUDA library), the
+# scorer, the detect-input eval and the recipe's pool by its YAML file's name
+import json
+from videoseal_tpu_torch import bench, setup_model_from_model_card  # noqa: F401
+from videoseal_tpu_torch.evals import detect_input
+from videoseal_tpu_torch.kernels import _lib, fused_jnd_blend, supports_fused_blend  # noqa: F401
+from videoseal_tpu_torch.losses import PerceptualLoss, VideoSealLoss, build_perceptual_loss  # noqa: F401
+from videoseal_tpu_torch.models import VideoSeal, build_embedder, build_extractor  # noqa: F401
+from videoseal_tpu_torch.modules.convnext import CONVNEXT_PRESETS
+from videoseal_tpu_torch.ops import resize_to, rgb_to_yuv, yuv_to_rgb
+from videoseal_tpu_torch.parallel import (TrainerModules, TrainState,  # noqa: F401
+                                          create_train_state, make_mesh, make_train_step)
+from videoseal_tpu_torch.ops.resize import upsample_nearest
+assert _lib._lib is None
+assert torch.allclose(yuv_to_rgb(rgb_to_yuv(x)), x, atol=1e-4)   # 5-digit constants
+assert resize_to(x, 32).shape == (2, 32, 32, 3) and upsample_nearest(x, 2).shape == (2, 96, 128, 3)
+assert CONVNEXT_PRESETS["tiny"]["dims"] == (96, 192, 384, 768)
+card_128 = os.path.join(tmp, "tiny128.json")
+with open(card_128, "w") as f:
+    json.dump(tiny_card(img_size=128), f)
+line = bench.main(["--device", "cpu", "--card", card_128, "--frames", "2", "--height", "64",
+                   "--width", "96", "--runs", "1", "--repeats", "1"])
+assert line["mode"] == "lowres_attenuation" and "vs_baseline" not in line
+assert detect_input.run(model, detect_input.smooth_frames(2, 64, 96, 0))[-1]["imgs_w_equal"]
+assert (train.augmentation_config("videoseal_tpu/configs/augs_identity.yaml")
+        == augmentation.AUGS["augs_identity"])
 print("OK")
 """
 

@@ -5,6 +5,7 @@ widths: the converter reorders, it does not check widths),
 package, and `augmentation.doaugs`.
 """
 
+import json
 import os
 
 import numpy as np
@@ -142,8 +143,11 @@ def test_eval_checkpoint_main_on_a_port_train_state(tmp_path):
                 "--batch_size", "2", "--img_size", "64", "--eval_freq", "0",
                 "--output_dir", out])
     csv = str(tmp_path / "metrics.csv")
+    card = str(tmp_path / "tiny_card.json")     # train.py's tiny card as a card file
+    with open(card, "w") as f:
+        json.dump(train.TINY_CARD, f)
     rows = eval_checkpoint.main(["--checkpoint", os.path.join(out, "checkpoint.npz"),
-                                 "--tiny", "1", "--nbits", "16", "--img_size", "64",
+                                 "--card", card, "--nbits", "16", "--img_size", "64",
                                  "--samples", "1", "--sample_size", "64", "--device", "cpu",
                                  "--out_csv", csv])
     assert len(rows) == sum(len(s) for _, s in get_validation_augs(False))
@@ -154,8 +158,8 @@ def test_eval_checkpoint_main_on_a_port_train_state(tmp_path):
 def test_doaugs_writes_every_row(tmp_path, is_video):
     from videoseal_tpu_torch.augmentation import doaugs
     from videoseal_tpu_torch.augmentation.validation import get_validation_augs
-    written = doaugs.main(["--out_dir", str(tmp_path), "--img_size", "64", "--is_video",
-                           str(is_video), "--device", "cpu"])
+    written = doaugs.main(["--out_dir", str(tmp_path), "--is_video", str(is_video),
+                           "--device", "cpu"])
     assert len(written) == sum(len(s) for _, s in get_validation_augs(bool(is_video)))
     assert all(os.path.getsize(p) > 0 for p in written)
 
@@ -166,5 +170,5 @@ def test_doaugs_defaults_to_the_card(tmp_path, monkeypatch):
     from videoseal_tpu_torch.augmentation import doaugs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
-        doaugs.main(["--out_dir", str(tmp_path), "--img_size", "64"])
+        doaugs.main(["--out_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)

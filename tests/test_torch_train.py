@@ -39,6 +39,8 @@ from torch_port import port_train_mods, train_weights
 
 torch.set_num_threads(4)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 LOG_RTOL, LOG_ATOL = 1e-4, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 JAX_COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
@@ -408,6 +410,62 @@ def test_train_main_refuses():
         make_mesh(n_frames=2)
     with pytest.raises(ValueError, match="JSON"):
         train.main(base + ["--augmentation_config", "augs.yaml"])
+
+
+AUG_POOLS = ["augs_geometric", "augs_geometric_hard", "augs_geometric_warm", "augs_identity"]
+
+
+@pytest.mark.parametrize("name", AUG_POOLS)
+@pytest.mark.parametrize("form", ["name", "yaml_path"])
+def test_augmentation_config_pools(name, form):
+    """--augmentation_config takes a pool of presets.AUGS by its name or by
+    its YAML file's path (the recipe's form; the file is not read) and gives
+    the pool the JAX train.py reads from that file."""
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.augmentation import presets
+    path = os.path.join(ROOT, "videoseal_tpu", "configs", f"{name}.yaml")
+    got = train.augmentation_config(name if form == "name" else path)
+    assert got == presets.AUGS[name] and got is not presets.AUGS[name]
+    args = train.get_parser().parse_args(["--tiny", "1", "--augmentation_config", path])
+    assert train._config(args)[1] == presets.AUGS[name]
+    yaml = pytest.importorskip("yaml")
+    with open(path) as f:
+        assert got == yaml.safe_load(f)
+
+
+@pytest.mark.parametrize("path", ["augs.yaml", "videoseal_tpu/configs/embedder.yaml",
+                                  "augs_identity_v2.yml", "all_augs"])
+def test_augmentation_config_other_yaml_raises(path):
+    """A path that names no pool raises ValueError naming the four pools."""
+    from videoseal_tpu_torch import train
+    with pytest.raises(ValueError, match="augs_geometric_warm") as e:
+        train.augmentation_config(path)
+    assert all(n in str(e.value) for n in AUG_POOLS) and "JSON" in str(e.value)
+
+
+def test_augmentation_config_json(tmp_path):
+    from videoseal_tpu_torch import train
+    cfg = {"masks": {"kind": None}, "augs": {"identity": 1, "jpeg": 2}, "augs_params": {}}
+    path = str(tmp_path / "augs_identity.json")     # a JSON file is read, whatever its name
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    assert train.augmentation_config(path) == cfg
+
+
+def test_recipe_schedule_matches_jax():
+    """docs/training.md's stage A schedule at train.py's 1,000 steps an
+    epoch: the port's lr equals the JAX package's at every step checked
+    (the warmup's end, the TPU runs' 0.98 steps, the last)."""
+    from videoseal_tpu.utils.optim import build_lr_schedule as jax_schedule
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.utils.optim import build_lr_schedule
+    spec = "CosineLRScheduler,lr_min=1e-6,t_initial=15,warmup_t=1"
+    ipe = train.get_parser().parse_args([]).iter_per_epoch
+    assert ipe == 1000
+    port, jx = build_lr_schedule(spec, ipe, 5e-4), jax_schedule(spec, ipe, 5e-4)
+    for step in (0, 1, 500, 999, 1000, 1001, 5620, 11080, 14999, 15000):
+        np.testing.assert_allclose(port(step), float(jx(step)), rtol=1e-6, atol=2 ** -23 * 5e-4)
+    assert port(1000) == pytest.approx(5e-4) and port(15000) == pytest.approx(1e-6)
 
 
 def test_jax_train_state_refused(tmp_path):

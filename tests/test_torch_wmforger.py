@@ -257,3 +257,17 @@ def test_checkpoints_cross(tmp_path, monkeypatch):
                          for f in ("cleaned_image.png", "watermark.png")])
         for a, b in zip(*outs):
             assert np.abs(a - b).max() <= 1
+
+
+def test_train_main_cpu_flag(tmp_path, monkeypatch):
+    """--cpu 1, the JAX script's flag, trains on the CPU as --device cpu
+    does (one tiny step), also where a card would be the default; without
+    it and without a card the script raises naming --device cpu."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    common = ["--tiny", "1", "--synthetic", "1", "--steps", "1", "--batch_size", "2",
+              "--img_size", str(S), "--output", str(tmp_path / "w.npz")]
+    model, step_ms = ptrain.main(common + ["--cpu", "1"])
+    assert len(step_ms) == 1 and (tmp_path / "w.npz").exists()
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ptrain.main(common)

@@ -16,8 +16,9 @@ pandas.
 from .kernels.fused_planar import pack_planar, planar_shape, unpack_planar
 from .models.blender import blend
 from .models.videoseal import PipelineConfig, VideoSeal, aggregate_message
-from .utils.cfg import load, load_card
+from .utils.cfg import load, load_card, setup_model_from_model_card
 from .utils.checkpoint import save_npz
 
 __all__ = ["PipelineConfig", "VideoSeal", "aggregate_message", "blend", "load", "load_card",
-           "pack_planar", "planar_shape", "save_npz", "unpack_planar"]
+           "pack_planar", "planar_shape", "save_npz", "setup_model_from_model_card",
+           "unpack_planar"]

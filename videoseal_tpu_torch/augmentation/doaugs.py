@@ -25,8 +25,6 @@ def main(argv=None) -> list[str]:
     ap.add_argument("--image", default=None)
     ap.add_argument("--out_dir", default="outputs/augs")
     ap.add_argument("--is_video", type=int, default=0)
-    ap.add_argument("--img_size", type=int, default=256,
-                    help="the synthetic sample's size (without --image)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.device != "cpu" and not torch.cuda.is_available():
@@ -44,7 +42,7 @@ def main(argv=None) -> list[str]:
         img = img[..., ::-1].astype(np.float32) / 255.0
     else:
         from ..data.datasets import SyntheticImages
-        img = SyntheticImages(1, img_size=args.img_size)[0][0]
+        img = SyntheticImages(1, img_size=256)[0][0]
     n = 8 if args.is_video else 1
     batch = torch.as_tensor(np.repeat(img[None], n, axis=0), device=args.device)
     mask = torch.ones(batch.shape[:-1] + (1,), device=args.device)

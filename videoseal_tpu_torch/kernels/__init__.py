@@ -6,3 +6,7 @@ blend mode fused_blend.fused_jnd_blend_up),
 K5 fused_blend.fused_jnd_delta, K6 fused_blend.fused_jnd_blend, and the
 attribution probes K7 jnd_probe.jnd_probe and K8 convnext_probe.convnext_probe.
 """
+
+from .fused_blend import fused_jnd_blend, supports_fused_blend
+
+__all__ = ["fused_jnd_blend", "supports_fused_blend"]

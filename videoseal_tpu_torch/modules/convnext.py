@@ -118,3 +118,16 @@ class ConvNeXtV2(nn.Module):
             for blk in stage:
                 x = blk.forward_plain(x)
         return x
+
+
+# size presets
+CONVNEXT_PRESETS = {
+    "atto": dict(depths=(2, 2, 6, 2), dims=(40, 80, 160, 320)),
+    "femto": dict(depths=(2, 2, 6, 2), dims=(48, 96, 192, 384)),
+    "pico": dict(depths=(2, 2, 6, 2), dims=(64, 128, 256, 512)),
+    "nano": dict(depths=(2, 2, 8, 2), dims=(80, 160, 320, 640)),
+    "tiny": dict(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768)),
+    "base": dict(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024)),
+    "large": dict(depths=(3, 3, 27, 3), dims=(192, 384, 768, 1536)),
+    "huge": dict(depths=(3, 3, 27, 3), dims=(352, 704, 1408, 2816)),
+}

@@ -8,6 +8,9 @@ import torch
 _R2Y = (0.299, 0.587, 0.114)
 _R2U = (-0.14713, -0.28886, 0.436)
 _R2V = (0.615, -0.51499, -0.10001)
+_Y2R = (1.0, 0.0, 1.13983)
+_Y2G = (1.0, -0.39465, -0.58060)
+_Y2B = (1.0, 2.03211, 0.0)
 
 
 def _mix(x: torch.Tensor, rows) -> torch.Tensor:
@@ -18,6 +21,11 @@ def _mix(x: torch.Tensor, rows) -> torch.Tensor:
 def rgb_to_yuv(x: torch.Tensor) -> torch.Tensor:
     """(..., 3) RGB -> YUV."""
     return _mix(x, (_R2Y, _R2U, _R2V))
+
+
+def yuv_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) YUV -> RGB."""
+    return _mix(x, (_Y2R, _Y2G, _Y2B))
 
 
 def rgb_to_y(x: torch.Tensor) -> torch.Tensor:

@@ -77,6 +77,19 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     return y.to(dt)
 
 
+def resize_to(x: torch.Tensor, size: int | tuple[int, int],
+              antialias: bool = True) -> torch.Tensor:
+    """`resize_bilinear` to a square (int) or (h, w) size."""
+    if isinstance(size, int):
+        size = (size, size)
+    return resize_bilinear(x, size[0], size[1], antialias=antialias)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest-neighbour x`factor` upsample of (..., H, W, C)."""
+    return x.repeat_interleave(factor, dim=-3).repeat_interleave(factor, dim=-2)
+
+
 @functools.lru_cache(maxsize=64)
 def _cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
     """(out_size, in_size) bicubic resampling matrix with torch's

@@ -22,8 +22,8 @@ def load_trained_model(checkpoint: str, card: str | dict = "videoseal_1.0", nbit
                        img_size: int = 128, scaling_w: float = 0.4,
                        attenuation: str = "jnd_1_1", device="cuda"):
     """A train-state .npz -> the serving VideoSeal on `device`, built as
-    train.py builds the modules (the card, or a card dict, with nbits,
-    img_size, scaling_w and attenuation set)."""
+    train.py builds the modules (the card by name or file, or a card dict,
+    with nbits, img_size, scaling_w and attenuation set)."""
     from ..models.videoseal import VideoSeal
     from ..utils.cfg import load_card
 
@@ -36,8 +36,7 @@ def load_trained_model(checkpoint: str, card: str | dict = "videoseal_1.0", nbit
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", required=True)
-    ap.add_argument("--card", default="videoseal_1.0")
-    ap.add_argument("--tiny", type=int, default=0, help="train.py's tiny card")
+    ap.add_argument("--card", default="videoseal_1.0", help="a card's name or a card file")
     ap.add_argument("--nbits", type=int, default=32)
     ap.add_argument("--img_size", type=int, default=128)
     ap.add_argument("--scaling_w", type=float, default=0.4)
@@ -50,10 +49,9 @@ def main(argv=None):
 
     from ..data.datasets import SyntheticImages
     from ..evals.full import evaluate
-    from ..train import TINY_CARD
 
-    model = load_trained_model(args.checkpoint, TINY_CARD if args.tiny else args.card,
-                               args.nbits, args.img_size, args.scaling_w, device=args.device)
+    model = load_trained_model(args.checkpoint, args.card, args.nbits, args.img_size,
+                               args.scaling_w, device=args.device)
     ds = SyntheticImages(args.samples, img_size=args.sample_size, seed=123)
     samples = [np.stack([ds[i][0]]) for i in range(args.samples)]
     rows = evaluate(model, samples, is_video=bool(args.is_video), out_csv=args.out_csv,

@@ -18,8 +18,10 @@ On the card:
 --ckpt_format orbax writes ``torch.distributed.checkpoint`` directories
 (``<output_dir>/ckpts/<step>/``, the flag named as in the JAX package);
 --resume takes such a directory, the port's ``.npz`` or one the JAX
-package wrote. --augmentation_config reads JSON; a YAML path raises
-ValueError.
+package wrote. --augmentation_config reads JSON, or takes a pool of
+``augmentation/presets.AUGS`` by its name or by the path of its YAML file
+(``videoseal_tpu/configs/augs_identity.yaml``), which is not read; another
+path raises ValueError.
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ def get_parser():
     p.add_argument("--prop_img_vid", type=float, default=0.5,
                    help="fraction of video epochs in hybrid modality")
     p.add_argument("--augmentation_config", default=None,
-                   help="JSON with {masks, augs, augs_params} (YAML is refused)")
+                   help="JSON with {masks, augs, augs_params}, or a pool of "
+                        "augmentation/presets.AUGS by name or by its YAML file's path")
     p.add_argument("--num_augs", type=int, default=2)
     # schedule
     p.add_argument("--epochs", type=int, default=100)
@@ -164,10 +167,27 @@ DEFAULT_AUGS = {
 }
 
 
+def augmentation_config(path: str) -> dict:
+    """An --augmentation_config: a JSON file, or a pool of presets.AUGS by
+    its name or by the path of its YAML file (the file is not read: the
+    pool travels as Python data, held equal to the file by the tests)."""
+    from .augmentation.presets import AUGS
+
+    if path.endswith(".json"):
+        with open(path) as f:
+            return json.load(f)
+    name = os.path.splitext(os.path.basename(path))[0]
+    if name in AUGS:
+        return copy.deepcopy(AUGS[name])
+    raise ValueError(f"--augmentation_config {path}: the port reads JSON, or one of the pools "
+                     f"{sorted(AUGS)} by its name or its YAML file's path (no YAML parser on "
+                     "the card's machine)")
+
+
 def _config(args) -> tuple[dict, dict]:
     """(card, augmentation config) from the flags: the card (or TINY_CARD)
     with the embedder and extractor presets the flags name; the augs from
-    a JSON file or DEFAULT_AUGS."""
+    --augmentation_config or DEFAULT_AUGS."""
     from . import presets
     from .utils.cfg import load_card
 
@@ -180,11 +200,7 @@ def _config(args) -> tuple[dict, dict]:
                              "params": copy.deepcopy(presets.EXTRACTOR[args.extractor_model])}
     aug_cfg = DEFAULT_AUGS
     if args.augmentation_config:
-        if not args.augmentation_config.endswith(".json"):
-            raise ValueError(f"--augmentation_config {args.augmentation_config}: the port "
-                             "reads JSON (no YAML parser on the card's machine)")
-        with open(args.augmentation_config) as f:
-            aug_cfg = json.load(f)
+        aug_cfg = augmentation_config(args.augmentation_config)
     return card, aug_cfg
 
 
@@ -267,7 +283,7 @@ def main(argv=None):
     import torch.distributed as dist
 
     args = get_parser().parse_args(argv)
-    _config(args)                       # refuse a YAML augmentation config first
+    _config(args)                       # refuse an unknown augmentation config first
     want = "cpu" if args.cpu else args.device
     if want != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("train runs on the CUDA device by default and none is available; "

@@ -1,4 +1,4 @@
-"""Snapshot images via cv2, counterpart of ``save_img`` and ``create_diff_img`` in
+"""Snapshot images and videos via cv2, counterpart of
 ``videoseal_tpu/utils/display.py``."""
 
 from __future__ import annotations
@@ -14,6 +14,27 @@ def save_img(img: np.ndarray, path: str) -> None:
     """(H, W, 3) [0,1] RGB -> an image file."""
     import cv2
     cv2.imwrite(path, _to_u8(img)[..., ::-1])
+
+
+def save_vid(frames: np.ndarray, path: str, fps: float = 24.0,
+             codec: str = "mp4v") -> None:
+    """(F, H, W, 3) [0,1] RGB -> a video file."""
+    import cv2
+    u8 = _to_u8(frames)
+    f, h, w, _ = u8.shape
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec), fps, (w, h))
+    for i in range(f):
+        vw.write(u8[i][..., ::-1])
+    vw.release()
+
+
+def get_fps(path: str) -> float:
+    """A video file's frame rate, 24 where the container gives none."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    fps = cap.get(cv2.CAP_PROP_FPS) or 24.0
+    cap.release()
+    return fps
 
 
 def create_diff_img(a: np.ndarray, b: np.ndarray, gain: float = 10.0) -> np.ndarray:

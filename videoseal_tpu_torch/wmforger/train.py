@@ -151,6 +151,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--tiny", type=int, default=0)
     p.add_argument("--output", default="wmforger_ckpt.npz")
+    p.add_argument("--cpu", type=int, default=0, help="the same as --device cpu")
     p.add_argument("--device", default="cuda",
                    help="the device to train on: the card unless 'cpu'")
     return p
@@ -172,7 +173,7 @@ def main(argv=None):
     (``params//encoder//...``); returns (extractor, step_ms): each step's
     ms (CUDA events on the card, the host clock on the CPU)."""
     args = get_parser().parse_args(argv)
-    device = torch.device(args.device)
+    device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("wmforger.train runs on the CUDA device by default and none is "
                            "available; pass --device cpu to train on the CPU")
