@@ -2,10 +2,11 @@
 by the JAX package's initializers (flax's lecun_normal for conv, transposed
 conv and linear weights: a normal truncated at two deviations with variance
 1 / fan_in; biases 0; the rest as `models/videoseal.init_weights` draws it).
-The port's own init draws weights and biases U(-1/sqrt(fan_in),
-1/sqrt(fan_in)) (ROADMAP §3.46, open: the repair belongs in
-`init_weights` itself). This script is kept as the record of how the logs
-beside it were made, not as a second init. Run from the repository's root:
+When these logs were made the port's own init drew weights and biases
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)); `init_weights` has drawn flax's
+initializers since (ROADMAP §3.46, closed), in this script's order, so the
+script now changes nothing. It is kept as the record of how the logs
+beside it were made. Run from the repository's root:
 
     python outputs/convergence_torch/lecun_init.py <train.py's flags>
 

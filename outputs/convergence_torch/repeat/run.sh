@@ -1,6 +1,8 @@
 #!/bin/bash
 # Does run-to-run nondeterminism decide whether stage A learns? The recipe
-# as docs/training.md writes it (the port's init, seed 444), its first
+# as docs/training.md writes it (the port's init, seed 444; uniform
+# weights and biases before init_weights drew flax's initializers, commit
+# 1bd623d and earlier), its first
 # 2,000 steps, four runs at once on one CUDA card under the same
 # conditions: twice as the trainer runs by default (default_a, default_b),
 # and twice with torch.use_deterministic_algorithms(True) (warn only: an op

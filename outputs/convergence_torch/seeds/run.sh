@@ -2,7 +2,9 @@
 # The recipe's first 3,000 steps (docs/training.md's stage A) from four
 # more starts, all at once on one CUDA card: the port's init (uniform
 # weights and biases) at seeds 0 and 1, and flax's lecun_normal init
-# (../lecun_init.py) at seeds 1 and 2. Run from the repository's root;
+# (../lecun_init.py) at seeds 1 and 2. The uniform arms are the port's
+# init before init_weights drew flax's initializers (commit 1bd623d and
+# earlier); from a later checkout they draw flax's. Run from the repository's root;
 # writes chiprun_out/seeds/{uniform0,uniform1,lecun1,lecun2}.log.txt.
 set -x
 mkdir -p chiprun_out/seeds

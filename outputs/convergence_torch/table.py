@@ -2,7 +2,10 @@
 log.txt, the first logged step at which bit_acc (the log's windowed
 median) reaches 0.6 / 0.75 / 0.9 / 0.98 / 1.0, bit_acc at a few steps, and
 the last line's bit_acc and psnr; then, for runs of one start, the first
-logged step at which two logs differ.
+logged step at which two logs differ. "uniform init" is init_weights
+before it drew flax's initializers (U(+-1/sqrt(fan_in)) weights and
+biases), "lecun init" lecun_init.py's, "flax init" init_weights since: the
+same draws as lecun_init.py's.
 
     python outputs/convergence_torch/table.py
 """
@@ -15,27 +18,35 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 RUNS = [
     ("TPU r2 (JAX, lecun_normal)", "outputs/convergence_r2/stageA/log.txt"),
     ("TPU r4 (JAX, lecun_normal)", "outputs/convergence_r4/stageA/log.txt"),
-    ("card, port init, seed 444", "outputs/convergence_torch/stageA/log.txt"),
-    ("card, port init, seed 444, TF32 off", "outputs/convergence_torch/init_tf32/tf32off.log.txt"),
-    ("card, port init, seed 0", "outputs/convergence_torch/seeds/uniform0.log.txt"),
-    ("card, port init, seed 1", "outputs/convergence_torch/seeds/uniform1.log.txt"),
+    ("card, uniform init, seed 444", "outputs/convergence_torch/stageA/log.txt"),
+    ("card, uniform init, seed 444, TF32 off", "outputs/convergence_torch/init_tf32/tf32off.log.txt"),
+    ("card, uniform init, seed 0", "outputs/convergence_torch/seeds/uniform0.log.txt"),
+    ("card, uniform init, seed 1", "outputs/convergence_torch/seeds/uniform1.log.txt"),
     ("card, lecun init, seed 444", "outputs/convergence_torch/stageA_lecun_init/log.txt"),
     ("card, lecun init, seed 444 (2nd)", "outputs/convergence_torch/init_tf32/lecun444.log.txt"),
     ("card, lecun init, seed 0", "outputs/convergence_torch/init_tf32/lecun0.log.txt"),
     ("card, lecun init, seed 1", "outputs/convergence_torch/seeds/lecun1.log.txt"),
     ("card, lecun init, seed 2", "outputs/convergence_torch/seeds/lecun2.log.txt"),
-    ("card, port init, seed 444, repeat a", "outputs/convergence_torch/repeat/default_a.log.txt"),
-    ("card, port init, seed 444, repeat b", "outputs/convergence_torch/repeat/default_b.log.txt"),
-    ("card, port init, seed 444, deterministic a",
+    ("card, uniform init, seed 444, repeat a", "outputs/convergence_torch/repeat/default_a.log.txt"),
+    ("card, uniform init, seed 444, repeat b", "outputs/convergence_torch/repeat/default_b.log.txt"),
+    ("card, uniform init, seed 444, deterministic a",
      "outputs/convergence_torch/repeat/det_a.log.txt"),
-    ("card, port init, seed 444, deterministic b",
+    ("card, uniform init, seed 444, deterministic b",
      "outputs/convergence_torch/repeat/det_b.log.txt"),
+    ("card, flax init, seed 444, deterministic", "outputs/convergence_torch/flax_init/seed444.log.txt"),
+    ("card, flax init, seed 0, deterministic", "outputs/convergence_torch/flax_init/seed0.log.txt"),
+    ("card, flax init, seed 1, deterministic", "outputs/convergence_torch/flax_init/seed1.log.txt"),
+    ("card, flax init, seed 2, deterministic", "outputs/convergence_torch/flax_init/seed2.log.txt"),
+    ("card, flax init, seed 444 (the recipe)",
+     "outputs/convergence_torch/flax_init/stageA/log.txt"),
 ]
 PAIRS = [           # two runs of one start: (name, run, run) by RUNS' names
-    ("repeat a, b", "card, port init, seed 444, repeat a", "card, port init, seed 444, repeat b"),
-    ("deterministic a, b", "card, port init, seed 444, deterministic a",
-     "card, port init, seed 444, deterministic b"),
+    ("repeat a, b", "card, uniform init, seed 444, repeat a", "card, uniform init, seed 444, repeat b"),
+    ("deterministic a, b", "card, uniform init, seed 444, deterministic a",
+     "card, uniform init, seed 444, deterministic b"),
     ("lecun seed 444, both", "card, lecun init, seed 444", "card, lecun init, seed 444 (2nd)"),
+    ("seed 444: lecun, flax init deterministic", "card, lecun init, seed 444 (2nd)",
+     "card, flax init, seed 444, deterministic"),
 ]
 MARKS = (0.6, 0.75, 0.9, 0.98, 1.0)
 AT = (1000, 2000, 2490)

@@ -57,9 +57,9 @@ AUGS = {"masks": {"kind": "mixed", "invert_proba": 0.5},
         "augs_params": {"gaussian_noise": {"min_std": 0.01, "max_std": 0.05}}}
 
 
-def _batch(is_video: bool, seed: int) -> np.ndarray:
+def _batch(is_video: bool, seed: int, dtype=np.float32) -> np.ndarray:
     shape = (2, 4, SIZE, SIZE, 3) if is_video else (4, SIZE, SIZE, 3)
-    return np.random.default_rng(seed).uniform(0, 1, shape).astype(np.float32)
+    return np.random.default_rng(seed).uniform(0, 1, shape).astype(dtype)
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ def steps(weights):
     key = jax.random.split(jax.random.PRNGKey(3))[0]   # _jax_step's message draw
     cases = [(_batch(v, 11), np.asarray(jax.random.randint(key, (2 if v else 4, NBITS), 0, 2),
                                         np.int64), bool(b), v, None, 0) for v, b in CASES]
-    cases += [(_batch(v, 21), None, True, v, AUGS, seed) for v in (False, True)
+    cases += [(_batch(v, 21, np.float64), None, True, v, AUGS, seed) for v in (False, True)
               for seed in (1, 2)]
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(run_local, rank_train_steps, 2, weights, cases)
@@ -138,14 +138,21 @@ def test_two_ranks_match_jax_step(weights, steps, is_video, balanced):
 @pytest.mark.parametrize("is_video,seed", [(False, 1), (False, 2), (True, 1), (True, 2)])
 def test_two_ranks_match_one_process_with_augmenter(weights, steps, is_video, seed):
     """The augmenter's draws made for the global batch on every rank: two
-    ranks give one process's step on the whole batch."""
+    ranks give one process's step on the whole batch. Both in float64, as
+    the frames mesh's steps below: in float32 the sums' other order alone
+    moves a gradient before a BatchNorm by up to 2.1e-4 of its module's
+    largest (measured on the video case at seed 2 with the one process at 1
+    thread, 1.4e-5 at 4), in float64 by 1.8e-14, so float64 shows the
+    sharding's arithmetic."""
     from videoseal_tpu_torch.augmentation.augmenter import build_augmenter
     from videoseal_tpu_torch.parallel.trainer import make_train_step
     idx = len(CASES) + [(False, 1), (False, 2), (True, 1), (True, 2)].index((is_video, seed))
     rec = steps[1][0][idx]
-    mods, state = port_train_mods(weights, True, augmenter=build_augmenter(AUGS, num_augs=2))
+    mods, state = port_train_mods(weights, True, augmenter=build_augmenter(AUGS, num_augs=2),
+                                  dtype=torch.float64)
     _, logs = make_train_step(mods, is_video=is_video)(
-        state, {"imgs": torch.from_numpy(_batch(is_video, 21))}, torch.Generator().manual_seed(seed))
+        state, {"imgs": torch.from_numpy(_batch(is_video, 21, np.float64))},
+        torch.Generator().manual_seed(seed))
     one = step_record(state, logs)
     for k, v in one["logs"].items():
         np.testing.assert_allclose(rec["logs"][k], v, rtol=DDP_LOG_RTOL, atol=LOG_ATOL, err_msg=k)

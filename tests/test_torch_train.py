@@ -21,6 +21,7 @@ cancellation, ~1e-3 with errors of a few 1e-7).
 """
 
 import copy
+import dataclasses
 import json
 import os
 
@@ -227,6 +228,118 @@ def test_intrain_eval_matches_jax(weights):
     unsure = float((np.abs(jlogits) < LOGIT_ATOL).mean())
     assert abs(got["bit_acc_identity_0"] - want["bit_acc_identity_0"]) <= unsure
     assert state.embedder.training            # back in train mode
+
+
+# -- docs/training.md's stage A over steps --------------------------------------------
+
+# the recipe at the tiny card: the augs_identity pool, the decode loss alone,
+# scaling_w 1, AdamW at lr 5e-4 under the warmup-cosine schedule with an
+# epoch of 2 steps, so that 3 steps cross the warmup into the cosine
+RECIPE_OPT = "AdamW,lr=5e-4"
+RECIPE_SCHED = "CosineLRScheduler,lr_min=1e-6,t_initial=15,warmup_t=1"
+RECIPE_EPOCH, RECIPE_STEPS = 2, 3
+
+
+def _recipe_loss(pkg):
+    return pkg.VideoSealLoss(balanced=False, total_norm=1.0, disc_weight=0.0, percep_weight=0.0,
+                             detect_weight=0.0, decode_weight=1.0, percep_loss="none")
+
+
+def _adam_mu(opt_state):
+    """optax's first moment in an AdamW state."""
+    return next(st.mu for st in opt_state if hasattr(st, "mu"))
+
+
+def test_recipe_steps_match_jax(weights):
+    """RECIPE_STEPS steps of the recipe in both packages from the same
+    weights, batches and messages (JAX's draws, as train.py splits its key,
+    injected), the optimizer state carried inside the step. Held at every
+    step: the lr, the logs, and every generator gradient against JAX's, which
+    the step recovers from optax's first moment (g_t = (mu_t - b1 mu_{t-1}) /
+    (1 - b1)); then every parameter, which carries AdamW's moments and the
+    schedule's steps. Both packages run in float64 (JAX under x64): with the
+    decode loss alone, JAX's float32 gradient of the UNet's first conv lies
+    3.7e-3 of its largest from JAX's own float64 step, which the port's
+    float32 one matches to 2e-6 (measured), so float32 would hold the port to
+    the reference's rounding. Gradients are held at the SGD step's
+    tolerances, parameters at GRAD_RTOL of their largest change plus
+    PARAM_ATOL."""
+    import yaml
+    from videoseal_tpu.augmentation.augmenter import build_augmenter as jax_augmenter
+    from videoseal_tpu.losses import videosealloss as jax_loss
+    from videoseal_tpu.parallel.trainer import TrainState
+    from videoseal_tpu.parallel.trainer import make_train_step as jax_step
+    from videoseal_tpu.utils.optim import build_lr_schedule as jax_schedule
+    from videoseal_tpu.utils.optim import build_optimizer as jax_optimizer
+    from videoseal_tpu_torch.augmentation.augmenter import build_augmenter
+    from videoseal_tpu_torch.augmentation.presets import AUGS
+    from videoseal_tpu_torch.losses import videosealloss as port_loss
+    from videoseal_tpu_torch.parallel.trainer import make_train_step
+    from videoseal_tpu_torch.utils.optim import build_lr_schedule
+
+    with open(os.path.join(ROOT, "videoseal_tpu", "configs", "augs_identity.yaml")) as f:
+        aug_cfg = yaml.safe_load(f)
+    assert aug_cfg == AUGS["augs_identity"]
+    rng = np.random.default_rng(13)
+    batches = [rng.uniform(0, 1, (3, SIZE, SIZE, 3)) for _ in range(RECIPE_STEPS)]
+    sched = jax_schedule(RECIPE_SCHED, RECIPE_EPOCH, 5e-4)
+    mods, state = port_train_mods(weights, False, RECIPE_OPT,
+                                  augmenter=build_augmenter(AUGS["augs_identity"], num_augs=1),
+                                  loss=_recipe_loss(port_loss), scaling_w=1.0,
+                                  schedule=build_lr_schedule(RECIPE_SCHED, RECIPE_EPOCH, 5e-4),
+                                  dtype=torch.float64)
+    named = {f"{i}.{n}": p for i, m in enumerate((state.embedder, state.extractor))
+             for n, p in m.named_parameters()}
+    step = make_train_step(mods)
+    generator = torch.Generator().manual_seed(0)
+    ev, xv, dv = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), weights)
+
+    def port_layout(tree):
+        sds = _port_sds({"params": tree["embedder"]}, {"params": tree["extractor"]}, dv)
+        return {f"{i}.{n}": v.numpy() for i in range(2) for n, v in sds[i].items()}
+
+    with jax.enable_x64(True):
+        jmods = dataclasses.replace(_jax_mods(False),
+                                    augmenter=jax_augmenter(aug_cfg, num_augs=1),
+                                    loss=_recipe_loss(jax_loss))
+        og, od = jax_optimizer(RECIPE_OPT, schedule=sched), jax_optimizer(RECIPE_OPT)
+        gen = {"embedder": ev["params"], "extractor": xv["params"]}
+        jstate = TrainState(step=jnp.zeros((), jnp.int32), embedder_params=ev["params"],
+                            embedder_stats=ev["batch_stats"], extractor_params=xv["params"],
+                            disc_params=dv["params"], opt_state_g=og.init(gen),
+                            opt_state_d=od.init(dv["params"]), scaling_w=jnp.float64(1.0))
+        key = jax.random.PRNGKey(444)
+        jstep = jax_step(jmods, og, od).lower(jstate, {"imgs": jnp.asarray(batches[0])},
+                                              key).compile(JAX_COMPILE_OPTIONS)
+        mu_prev = {k: 0.0 for k in named}
+        for i, imgs in enumerate(batches):
+            np.testing.assert_allclose(state.opt_g.param_groups[0]["lr"], float(sched(i)),
+                                       rtol=1e-6, atol=2 ** -23 * 5e-4)
+            key, k = jax.random.split(key)
+            msgs = np.asarray(jax.random.randint(jax.random.split(k)[0], (3, NBITS), 0, 2))
+            jstate, jlogs = jstep(jstate, {"imgs": jnp.asarray(imgs)}, k)
+            _, plogs = step(state, {"imgs": torch.from_numpy(imgs)}, generator,
+                            msgs=torch.from_numpy(msgs.copy()))
+            assert set(jlogs) == set(plogs), (sorted(jlogs), sorted(plogs))
+            for name, v in jlogs.items():
+                np.testing.assert_allclose(float(plogs[name]), float(v), rtol=LOG_RTOL,
+                                           atol=LOG_ATOL, err_msg=f"step {i}: {name}")
+            mu = port_layout(jax.tree_util.tree_map(np.asarray, _adam_mu(jstate.opt_state_g)))
+            for name, p in named.items():
+                want = (mu[name] - 0.9 * mu_prev[name]) / 0.1
+                tol = GRAD_RTOL * float(np.abs(want).max()) + GRAD_ATOL
+                np.testing.assert_allclose(p.grad.numpy(), want, rtol=0, atol=tol,
+                                           err_msg=f"step {i}: {name}")
+            mu_prev = mu
+        jstate = jax.tree_util.tree_map(np.asarray, jstate)
+    assert state.step == RECIPE_STEPS
+    old = port_layout({"embedder": ev["params"], "extractor": xv["params"]})
+    new = port_layout({"embedder": jstate.embedder_params, "extractor": jstate.extractor_params})
+    for name, p in named.items():
+        moved = new[name] - old[name]
+        assert moved.any(), name
+        tol = GRAD_RTOL * float(np.abs(moved).max()) + PARAM_ATOL
+        np.testing.assert_allclose(p.detach().numpy(), new[name], rtol=0, atol=tol, err_msg=name)
 
 
 # -- optimizers and schedules against optax ----------------------------------------

@@ -185,12 +185,14 @@ def train_weights(nbits: int = TRAIN_NBITS, size: int = TRAIN_SIZE):
 def port_train_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0", mesh=None,
                     augmenter=None, nbits: int = TRAIN_NBITS, size: int = TRAIN_SIZE,
                     video_mode: str = "repeat", conv_layer: str = "conv2d",
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32, loss=None, schedule=None,
+                    scaling_w: float = 0.2):
     """(TrainerModules, TrainState) of the port at the tiny training card
     holding `weights`, the dummy augmenter unless one is given. With
     `conv_layer` "conv2p1d" the UNet's convolutions mix frames: its weights
     are the port's seeded init, the temporal convolutions' too. The modules
-    take `dtype`."""
+    take `dtype`; `loss` (a VideoSealLoss) replaces the default one,
+    `schedule` drives the generator's lr, `scaling_w` starts the state."""
     from videoseal_tpu_torch.augmentation.augmenter import get_dummy_augmenter
     from videoseal_tpu_torch.losses.videosealloss import VideoSealLoss
     from videoseal_tpu_torch.models.embedder import build_embedder
@@ -221,10 +223,10 @@ def port_train_mods(weights, balanced: bool, opt: str = "SGD,lr=1.0", mesh=None,
         augmenter=augmenter or get_dummy_augmenter(), attenuation=JND(),
         cfg=PipelineConfig(img_size=size, chunk_size=4, step_size=2, yuv=True, nbits=nbits,
                            video_mode=video_mode),
-        loss=VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
-                           decode_weight=1.0, detect_weight=0.0),
+        loss=loss or VideoSealLoss(balanced=balanced, total_norm=1.0, percep_loss="yuv",
+                                   decode_weight=1.0, detect_weight=0.0),
         balanced=balanced, mesh=mesh)
-    return mods, create_train_state(mods, opt, opt)
+    return mods, create_train_state(mods, opt, opt, scaling_w=scaling_w, schedule=schedule)
 
 
 def step_record(state, logs) -> dict:
@@ -244,7 +246,8 @@ def rank_train_steps(rank, weights, cases):
     """Run on each rank of a process group (``parallel.launch.run_local``):
     for each case (imgs, msgs, balanced, is_video, augs config or None,
     generator seed), one SGD step at lr 1 on the rank's rows of the global
-    batch `imgs`; msgs (the global batch's) injected where given."""
+    batch `imgs`, the modules in the images' dtype; msgs (the global
+    batch's) injected where given."""
     from videoseal_tpu_torch.augmentation.augmenter import build_augmenter
     from videoseal_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from videoseal_tpu_torch.parallel.trainer import make_train_step
@@ -253,7 +256,8 @@ def rank_train_steps(rank, weights, cases):
     out = []
     for imgs, msgs, balanced, is_video, augs, seed in cases:
         aug = build_augmenter(augs, num_augs=2) if augs else None
-        mods, state = port_train_mods(weights, balanced, mesh=mesh, augmenter=aug)
+        mods, state = port_train_mods(weights, balanced, mesh=mesh, augmenter=aug,
+                                      dtype=torch.from_numpy(imgs[:0]).dtype)
         step = make_train_step(mods, is_video=is_video)
         _, logs = step(state, {"imgs": shard_batch(mesh, torch.from_numpy(imgs))},
                        torch.Generator().manual_seed(seed),

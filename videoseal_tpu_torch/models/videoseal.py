@@ -23,6 +23,7 @@ import torch
 from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_blend_up, supports_fused_blend
 from ..kernels.fused_planar import fused_jnd_blend_planar, resize_planar
 from ..modules.common import mixes_frames
+from ..modules.discriminator import SNConv2d
 from ..modules.jnd import JND, build_attenuation
 from ..modules.msg_processor import get_random_msg
 from ..ops.color import rgb_to_y
@@ -269,21 +270,46 @@ def aggregate_message(preds: torch.Tensor, aggregation: str = "avg") -> torch.Te
     return (decoded > 0)[None].to(torch.int32)
 
 
+# the deviation of a unit normal truncated at +-2: flax's truncated_normal
+# draws divide by it so that the kept values have the asked variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def _fan_in(m: torch.nn.Module) -> int:
+    """flax's fan-in of the layer's kernel: kh*kw*I/groups of a conv (kh*kw
+    for a depthwise one), kt*kh*kw*I of a 3D conv, I of a dense layer, and
+    kh*kw*I of a transposed conv (flax's (kh, kw, I, O) kernel, which the
+    port stores as (I, O, kh, kw))."""
+    w = m.weight
+    if isinstance(m, torch.nn.ConvTranspose2d):
+        return w.shape[0] * w[0, 0].numel()
+    return w[0].numel()
+
+
 def init_weights(module: torch.nn.Module, generator: torch.Generator) -> None:
-    """Random init from `generator`: conv/linear weights and biases
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the message table N(0, 1), norms at
-    identity, GRN at zero (the JAX package's initializers for those); a
-    module with its own `init_weights(generator)` (DINO's position table)
-    draws the rest."""
+    """Random init from `generator`, as the JAX package's flax modules draw
+    it: conv, 3D conv, transposed conv, spectral-norm conv and linear
+    weights lecun_normal (a normal truncated at two deviations, variance
+    1 / fan_in) and biases 0; the message table N(0, 1); the spectral norm's
+    `u` N(0, 1). Everything else keeps the value its constructor gives, which
+    is the JAX module's initializer: norms at scale 1 and bias 0, GRN's
+    gamma and beta 0, DINO's layer scales 1 and class token 0, the ViT's
+    position and relative-position tables 0; ActNorm sets itself from its
+    first batch in train mode. A module with its own
+    `init_weights(generator)` (DINO's position table, N(0, 0.02)) draws its
+    part."""
     with torch.no_grad():
         for m in module.modules():
             if hasattr(m, "init_weights"):
                 m.init_weights(generator)
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
-                bound = m.weight[0].numel() ** -0.5
-                m.weight.uniform_(-bound, bound, generator=generator)
-                if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear,
+                              torch.nn.ConvTranspose2d, SNConv2d)):
+                torch.nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                m.weight.mul_(_fan_in(m) ** -0.5 / _TRUNC_STD)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+                if isinstance(m, SNConv2d):
+                    m.u.normal_(0.0, 1.0, generator=generator)
             elif isinstance(m, torch.nn.Embedding):
                 m.weight.normal_(0.0, 1.0, generator=generator)
 

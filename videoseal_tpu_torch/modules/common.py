@@ -46,14 +46,14 @@ def get_activation(name: str) -> nn.Module:
 def channel_ln(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                dim: int, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over axis `dim` (eps 1e-6, as every ConvNeXt/UNet LN of the
-    model), computed in float32, returned in x's dtype."""
-    xf = x.float()
+    model), computed in float32 (float64 stays), returned in x's dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mu = xf.mean(dim=dim, keepdim=True)
     var = (xf - mu).square().mean(dim=dim, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     shape = [1] * x.ndim
     shape[dim] = -1
-    y = y * weight.float().reshape(shape) + bias.float().reshape(shape)
+    y = y * weight.to(xf.dtype).reshape(shape) + bias.to(xf.dtype).reshape(shape)
     return y.to(x.dtype)
 
 
@@ -80,11 +80,11 @@ class GRN(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, 1, 1, dim))
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))   # float64 stays
         gx = torch.sqrt(torch.clamp(xf.square().sum(dim=(-3, -2), keepdim=True),
                                     min=1e-12))
         nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
-        return (self.gamma.float() * (xf * nx) + self.beta.float() + xf).to(x.dtype)
+        return (self.gamma.to(xf.dtype) * (xf * nx) + self.beta.to(xf.dtype) + xf).to(x.dtype)
 
 
 class ChanRMSNorm(nn.Module):
@@ -197,8 +197,8 @@ def make_norm(kind: str, dim: int) -> nn.Module:
 
 class Interpolate(nn.Module):
     """Bilinear x`factor` resample of NCHW input with the JAX package's
-    matrices (no antialias). f32 input resamples in f32, anything else in
-    bf16, as ``videoseal_tpu.modules.common.Upsample`` does."""
+    matrices (no antialias). f32 input resamples in f32, bf16 and f16 input
+    in bf16, as ``videoseal_tpu.modules.common.Upsample`` does; f64 in f64."""
 
     def __init__(self, factor: int):
         super().__init__()
@@ -208,7 +208,7 @@ class Interpolate(nn.Module):
         if self.factor == 1:
             return x
         h, w = x.shape[-2] * self.factor, x.shape[-1] * self.factor
-        prec = "highest" if x.dtype == torch.float32 else "default"
+        prec = "default" if x.dtype in (torch.bfloat16, torch.float16) else "highest"
         y = resize_bilinear(x.permute(0, 2, 3, 1), h, w, antialias=False,
                             precision=prec, out_dtype=x.dtype)
         return y.permute(0, 3, 1, 2)

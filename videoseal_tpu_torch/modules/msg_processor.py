@@ -36,12 +36,13 @@ class MsgProcessor(nn.Module):
         return latent_channels + (self.hidden_size if self.msg_agg == "concat" else 0)
 
     def message_embedding(self, msgs: torch.Tensor) -> torch.Tensor:
-        """(B, nbits) -> (B, hidden) float32."""
-        table = self.msg_embeddings.weight.float()
+        """(B, nbits) -> (B, hidden) float32 (float64 with a float64 table)."""
+        w = self.msg_embeddings.weight
+        table = w.to(torch.promote_types(w.dtype, torch.float32))
         if self.msg_type.startswith("gau"):
-            return msgs.float() @ table
+            return msgs.to(table.dtype) @ table
         even, odd = table[0::2], table[1::2]
-        return even.sum(dim=0) + msgs.float() @ (odd - even)
+        return even.sum(dim=0) + msgs.to(table.dtype) @ (odd - even)
 
     def forward(self, latents: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
         """latents (B, C, h, w) NCHW; returns (B, out_channels(C), h, w)."""

@@ -52,10 +52,11 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                     out_dtype=None) -> torch.Tensor:
     """Resize (..., H, W, C) to (..., out_h, out_w, C).
 
-    precision="highest" computes in float32; "default" runs both matmuls in
-    bfloat16 (inputs and weight tables rounded to bf16, float32 accumulation,
-    bf16 intermediate), the serving fast path. Integer inputs return float32
-    unless `out_dtype` says otherwise.
+    precision="highest" computes in float32 (float64 input in float64);
+    "default" runs both matmuls in bfloat16 (inputs and weight tables
+    rounded to bf16, float32 accumulation, bf16 intermediate), the serving
+    fast path. Integer inputs return float32 unless `out_dtype` says
+    otherwise.
     """
     h, w = x.shape[-3], x.shape[-2]
     dt = out_dtype
@@ -64,7 +65,7 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     if (h, w) == (out_h, out_w):
         return x.to(dt)
     if precision == "highest":
-        cdt = torch.float32
+        cdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     elif precision == "default":
         cdt = torch.bfloat16
     else:

@@ -278,8 +278,9 @@ def make_train_step(mods: TrainerModules, is_video: bool = False, mode: str = "b
                 sq = []
                 for v in losses.values():
                     (g,) = torch.autograd.grad(v, preds_w, retain_graph=True, allow_unused=True)
-                    sq.append(torch.sum(g.float() ** 2).detach() if g is not None
-                              else torch.zeros((), device=v.device))
+                    # in float32 (float64 in a float64 step)
+                    sq.append(torch.sum(g.to(torch.promote_types(g.dtype, torch.float32)) ** 2)
+                              .detach() if g is not None else torch.zeros((), device=v.device))
                 sq = torch.stack(sq)
                 if mesh is not None:
                     dist.all_reduce(sq, group=mesh.all_group)
