@@ -26,6 +26,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      embed_detect_planar over 128 planar 1080p frames in the scored and the
      card-default modes; checks shapes, launch counts, the scaling_w=0
      identity, CPU-vs-card agreement on 4 frames; times it;
+     unet (after 5): the serving UNet (videoseal_tpu_torch/kernels/
+     unet_fused.py, no kernel): with_dtype("bfloat16") routes the embedder
+     there (its config and a counter of the folded forward's calls, apart
+     from the kernels' counts); for videoseal_1.0's, chunkyseal's and
+     videoseal_0.0's embedders (BatchNorm statistics and rms gains drawn)
+     on one chunk of 32 key frames at 256x256, the folded forward against
+     the module on the card in float32 with TF32 off, the card's bf16 folded
+     forward against the CPU's on a frame; times both routes per chunk;
   6. K4, K5, K6 (full-resolution JND on NHWC frames) against their plain
      versions at 1080p, F=4 (K4's delta and blend modes on u8 and f32 frames,
      K5, K6 with 1- and 3-channel predictions in f32 and bf16), K4's four
@@ -290,6 +298,16 @@ CHUNKY_LOGIT_ATOL = 5e-2
 # bf16) drifts by bf16 ulps on the two devices' conv algorithms: measured
 # 5.27e-2 at most (13 ulps) on 2 frames; the mean stays within a few ulps
 V0_F32_ATOL, V0_PRED_ATOL, V0_PRED_MEAN, V0_LOGIT_ATOL = 1e-4, 0.1, 1e-2, 5e-2
+# the unet phase: videoseal_1.0's, chunkyseal's and videoseal_0.0's
+# embedders on one chunk of key frames at their processing size; the folded
+# forward against the module in float32 (TF32 off) within UNET_F32_RTOL of
+# the output's largest (the JAX package's parity bound); the card's bf16
+# folded forward against the CPU's on UNET_CPU_FRAMES frames under the
+# slice's noise rule (SLICE_NOISE_FACTOR times the CPU's bf16 against its
+# float32), chunkyseal's at 128 px (its 2,560-channel bottleneck costs ~2
+# TFLOP a frame at 256 px)
+UNET_CARDS, UNET_FRAMES, UNET_CPU_FRAMES = ("videoseal_1.0", "chunkyseal", "videoseal_0.0"), 32, 1
+UNET_F32_RTOL, UNET_CPU_SIZE = 2e-4, {"chunkyseal": 128}
 # grouped route, card vs CPU on 4 frames: the same bf16 forward with conv and
 # matmul sums in another order; measured 3.9e-3 on logits up to ~0.7. On the
 # card the grouped route equals the single one: K3 runs K2's parts on K2's
@@ -865,6 +883,111 @@ def phase_slice(dev, smi: str) -> dict:
     return rec
 
 
+def _unet_embedder(name: str, dev):
+    """`name`'s embedder in eval mode, built on the card at random init
+    from seed 0, with its BatchNorm statistics and affine and its rms gains
+    drawn as well, so that the fold is far from the identity."""
+    from videoseal_tpu_torch.cards import CARDS
+    from videoseal_tpu_torch.models.embedder import build_embedder
+    from videoseal_tpu_torch.models.videoseal import init_weights
+    from videoseal_tpu_torch.modules.common import ChanRMSNorm
+    card = CARDS[name]
+    args, emb = card["args"], card["embedder"]
+    with torch.device(dev):
+        spec = build_embedder(emb["model"], emb["params"], int(args["nbits"]),
+                              float(args.get("hidden_size_multiplier", 2.0)))
+    g = torch.Generator(device=dev).manual_seed(0)
+    init_weights(spec.module, g)
+    with torch.no_grad():
+        for m in spec.module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+            elif isinstance(m, ChanRMSNorm):
+                m.gamma.uniform_(0.5, 1.5, generator=g)
+    return spec.module.eval(), int(args["nbits"]), spec.yuv
+
+
+def phase_unet(dev, smi: str) -> dict:
+    """The serving UNet (kernels/unet_fused.py, no kernel of the TPU's):
+    a with_dtype("bfloat16") model routes its embedder there; for
+    videoseal_1.0's, chunkyseal's and videoseal_0.0's embedders, one chunk
+    of UNET_FRAMES key frames at 256x256, the folded forward against the
+    module on the card in float32 with TF32 off, the card's bf16 folded
+    forward against the CPU's, and both routes timed in bf16."""
+    import videoseal_tpu_torch as vt
+    from videoseal_tpu_torch.kernels.unet_fused import unet_apply_fused
+    from videoseal_tpu_torch.models import videoseal as vsm
+    from videoseal_tpu_torch.ops.resize import resize_bilinear
+
+    m16 = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
+    calls = []
+    real = vsm.unet_apply_fused
+    vsm.unet_apply_fused = lambda *a: calls.append(1) or real(*a)
+    try:
+        g = torch.Generator(device=dev).manual_seed(20)
+        frames = torch.randint(0, 256, (8, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
+        m16.embed(frames, is_video=True)
+    finally:
+        vsm.unet_apply_fused = real
+    log(f"[unet] videoseal_1.0.with_dtype('bfloat16'): cfg.fused_embedder "
+        f"{m16.cfg.fused_embedder}, folded forwards in one embed of 8 frames {len(calls)}")
+    if not m16.cfg.fused_embedder or len(calls) != 1:
+        raise AssertionError("with_dtype('bfloat16') does not serve the UNet's folded forward")
+    del m16, frames
+    rec = {"route_calls": len(calls)}
+    for name in UNET_CARDS:
+        t0 = time.perf_counter()
+        emb, nbits, yuv = _unet_embedder(name, dev)
+        g = torch.Generator(device=dev).manual_seed(21)
+        x = torch.rand((UNET_FRAMES, 256, 256, 1 if yuv else 3), generator=g, device=dev)
+        msgs = torch.randint(0, 2, (UNET_FRAMES, nbits), generator=g, device=dev)
+        with torch.no_grad():
+            with tf32_off():
+                fused32 = unet_apply_fused(emb.unet, x, msgs)
+                ref32 = emb(x, msgs)
+            err = float((fused32 - ref32).abs().max())
+            top = float(ref32.abs().max())
+            del fused32, ref32
+            e16 = emb.to(torch.bfloat16)       # folds anew in bf16 at its next call
+            x16 = x.to(torch.bfloat16)
+            fused_ms = cuda_ms(lambda: unet_apply_fused(e16.unet, x16, msgs))
+            module_ms = cuda_ms(lambda: e16(x16, msgs))
+            # the CPU's bf16 and float32 folded forwards on a few frames:
+            # its bf16 noise bounds the card's distance from it
+            s = UNET_CPU_SIZE.get(name, 256)
+            xc = resize_bilinear(x[:UNET_CPU_FRAMES], s, s).to(torch.bfloat16)
+            mc = msgs[:UNET_CPU_FRAMES]
+            card16 = unet_apply_fused(e16.unet, xc, mc).float().cpu()
+            c16 = cpu_copy(e16)
+            cpu16 = unet_apply_fused(c16.unet, xc.cpu(), mc.cpu()).float()
+            cpu32 = unet_apply_fused(c16.float().unet, xc.cpu().float(), mc.cpu()).float()
+            del c16, e16, emb
+        d, floor = (card16 - cpu16).abs(), (cpu16 - cpu32).abs()
+        lim_max = SLICE_NOISE_FACTOR * float(floor.max())
+        lim_mean = SLICE_NOISE_FACTOR * float(floor.mean())
+        r = {"f32_max_abs": err, "f32_out_max": top, "bf16_max": float(d.max()),
+             "bf16_mean": float(d.mean()), "bf16_max_limit": lim_max,
+             "bf16_mean_limit": lim_mean, "fused_ms": fused_ms, "module_ms": module_ms,
+             "cpu_size": s, "s": time.perf_counter() - t0}
+        log(f"[unet] {name}: {UNET_FRAMES} frames at 256x256, float32 (TF32 off) folded vs "
+            f"module on the card: max abs diff {err:.3e} (limit {UNET_F32_RTOL} x {top:.3f}); "
+            f"bf16 card vs CPU on {UNET_CPU_FRAMES} at {s}x{s}: max {r['bf16_max']:.3e} "
+            f"(limit {lim_max:.3e}), mean {r['bf16_mean']:.3e} (limit {lim_mean:.3e}); bf16 "
+            f"per chunk: folded {fused_ms:.3f} ms, module {module_ms:.3f} ms ({smi}); "
+            f"{r['s']:.1f} s")
+        if err > UNET_F32_RTOL * top:
+            raise AssertionError(f"{name}: the folded UNet disagrees with the module in float32")
+        if r["bf16_max"] > lim_max or r["bf16_mean"] > lim_mean:
+            raise AssertionError(f"{name}: the card's bf16 folded UNet disagrees with the CPU's")
+        rec[name] = r
+        del x, x16, msgs
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_jnd(dev) -> dict:
     """K4 (delta and blend mode, u8 and f32 frames), K5, K6 against their
     plain versions at F=4 and at F=2, 1078x1922; timed at F=128."""
@@ -1080,12 +1203,13 @@ def phase_nhwc(dev, smi: str) -> dict:
 
 
 def cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
-    """A CPU copy of a model's module, without the kernel parameters its
-    blocks cached on the card (the CPU builds its own)."""
+    """A CPU copy of a model's module, without the kernel parameters or
+    folded weights its blocks cached on the card (the CPU builds its own)."""
     import copy
     out = copy.deepcopy(module).cpu()
     for m in out.modules():
         m.__dict__.pop("_kernel_params", None)
+        m.__dict__.pop("_fused_params", None)
     return out
 
 
@@ -3931,6 +4055,7 @@ def main() -> int:
     rec["K1"] = phase_k1(dev)
     rec["K2"] = phase_k2(dev)
     rec["slice"] = phase_slice(dev, smi)
+    rec["unet"] = phase_unet(dev, smi)
     rec["jnd"] = phase_jnd(dev)
     rec["nhwc"] = phase_nhwc(dev, smi)
     rec["chunky"] = phase_chunky(dev, smi)

@@ -19,8 +19,12 @@ from ..modules.vae import VAEDecoder, VAEEncoder
 
 
 class UnetEmbedder(nn.Module):
+    """`unet_cfg` keeps the UNet's settings, which
+    ``kernels/unet_fused.supports_unet_fused`` reads."""
+
     def __init__(self, nbits: int, hidden_size: int, unet: dict):
         super().__init__()
+        self.unet_cfg = dict(unet)
         self.unet = UNetMsg(nbits=nbits, hidden_size=hidden_size, **unet)
 
     def forward(self, imgs: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,9 @@ import torch
 
 from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_blend_up, supports_fused_blend
 from ..kernels.fused_planar import fused_jnd_blend_planar, resize_planar
+from ..kernels.unet_fused import supports_unet_fused, unet_apply_fused
 from ..modules.common import mixes_frames
+from ..modules.convnext import differentiable
 from ..modules.discriminator import SNConv2d
 from ..modules.jnd import JND, build_attenuation
 from ..modules.msg_processor import get_random_msg
@@ -30,7 +32,7 @@ from ..ops.color import rgb_to_y
 from ..ops.resize import resize_bilinear
 from ..utils.checkpoint import load_into
 from .blender import blend
-from .embedder import EmbedderSpec, build_embedder
+from .embedder import EmbedderSpec, UnetEmbedder, build_embedder
 from .extractor import ExtractorSpec, build_extractor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -53,6 +55,7 @@ class PipelineConfig:
     nbits: int = 256
     compute_dtype: str = "float32"
     resize_precision: str = "highest"
+    fused_embedder: bool = False   # BN-folded UNet forward (kernels/unet_fused.py)
 
 
 def _expand_video_mode(preds: torch.Tensor, total_frames: int, step_size: int,
@@ -100,15 +103,20 @@ def _chunked_apply(fn, xs: tuple, chunk_size: int, pad_last: bool = False) -> to
 
 def _make_run_embedder(embedder, cfg: PipelineConfig, pre_scale: float | None = None):
     """Embedder forward over a (frames, msgs) chunk: optional input rescale
-    (1/255 for u8 frames), YUV-Y select, compute-dtype cast."""
+    (1/255 for u8 frames), YUV-Y select, compute-dtype cast, then the UNet's
+    folded forward (``kernels/unet_fused.py``) where cfg.fused_embedder is
+    set, the module is in eval mode and takes no gradient, else the module."""
     cdtype = _DTYPES[cfg.compute_dtype]
+    fused = cfg.fused_embedder and isinstance(embedder, UnetEmbedder)
 
     def run_embedder(batch):
         inp, m = batch
         if pre_scale is not None:
             inp = inp * pre_scale
-        x = rgb_to_y(inp) if cfg.yuv else inp
-        return embedder(x.to(cdtype), m)
+        x = (rgb_to_y(inp) if cfg.yuv else inp).to(cdtype)
+        if fused and not embedder.training and not differentiable(embedder, x):
+            return unet_apply_fused(embedder.unet, x, m)
+        return embedder(x, m)
 
     return run_embedder
 
@@ -423,9 +431,15 @@ class VideoSeal:
     # -- configuration -----------------------------------------------------
     def with_dtype(self, dtype: str = "bfloat16", resize_precision: str = "default"):
         """A copy for serving-speed inference: floating params and the
-        forwards in `dtype`, bf16 resizes. The full-res blend stays f32."""
+        forwards in `dtype`, bf16 resizes, and a UNet embedder that
+        `supports_unet_fused` served through its folded forward on every
+        device, as the JAX package's with_dtype serves it. The full-res
+        blend stays f32."""
+        fused_emb = (isinstance(self.embedder, UnetEmbedder)
+                     and supports_unet_fused(self.embedder.unet_cfg))
         cfg = dataclasses.replace(self.cfg, compute_dtype=dtype,
-                                  resize_precision=resize_precision)
+                                  resize_precision=resize_precision,
+                                  fused_embedder=fused_emb)
         emb = dataclasses.replace(self.embedder_spec,
                                   module=copy.deepcopy(self.embedder).to(_DTYPES[dtype]))
         ext = dataclasses.replace(self.extractor_spec,
