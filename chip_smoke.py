@@ -34,13 +34,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      on one chunk of 32 key frames at 256x256, the folded forward against
      the module on the card in float32 with TF32 off, the card's bf16 folded
      forward against the CPU's on a frame; times both routes per chunk;
+     tools (after unet): the JAX package's timing tools in the port:
+     evals/unet_bench.main() (the stages unet_apply_fused chains) and
+     evals/stage_bench.main(["--decompose"]) at their defaults (128 u8
+     1080p frames: K2 1,296, K4 9, K5 18), each K2, K4 and K5 launch's
+     first call per shape held against its plain version; each stage's ms
+     printed, no time asserted;
   6. K4, K5, K6 (full-resolution JND on NHWC frames) against their plain
-     versions at 1080p, F=4 (K4's delta and blend modes on u8 and f32 frames,
-     K5, K6 with 1- and 3-channel predictions in f32 and bf16), K4's four
-     cases, K5 and K6 again at F=2 and 1078x1922 (unaligned rows, ragged
-     groups, strips and chunks), K4's four at F=2 and 120x200 (its general
-     width path), and K5(resize(pred)) against K4(pred);
-     times each and its plain version at F=128;
+     versions at 1080p, F=4 (K4's delta and blend modes and K5 on u8 and
+     f32 frames, K6 with 1- and 3-channel predictions in f32 and bf16),
+     K4's four cases, K5 on both frame types and K6 again at F=2 and
+     1078x1922 (unaligned rows, ragged groups, strips and chunks), K4's
+     four at F=2 and 120x200 (its general width path), and K5(resize(pred))
+     against K4(pred); times each and its plain version at F=128;
   7. the NHWC slice: videoseal_1.0 at random init (seed 0) in bf16, embed
      of 128 u8 1080p frames as a video, detect and extract_message of the
      result, embed of 32 float frames as images; checks shapes, launch
@@ -254,7 +260,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-from videoseal_tpu_torch.utils.timing import cuda_ms  # noqa: E402
+from videoseal_tpu_torch.utils.timing import cuda_ms, device_info  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 H, W, F_SLICE = 1080, 1920, 128
@@ -308,6 +314,8 @@ V0_F32_ATOL, V0_PRED_ATOL, V0_PRED_MEAN, V0_LOGIT_ATOL = 1e-4, 0.1, 1e-2, 5e-2
 # TFLOP a frame at 256 px)
 UNET_CARDS, UNET_FRAMES, UNET_CPU_FRAMES = ("videoseal_1.0", "chunkyseal", "videoseal_0.0"), 32, 1
 UNET_F32_RTOL, UNET_CPU_SIZE = 2e-4, {"chunkyseal": 128}
+# the tools phase: calls a stage after the warm-up (the tools' --k default)
+TOOLS_K = 8
 # grouped route, card vs CPU on 4 frames: the same bf16 forward with conv and
 # matmul sums in another order; measured 3.9e-3 on logits up to ~0.7. On the
 # card the grouped route equals the single one: K3 runs K2's parts on K2's
@@ -382,7 +390,8 @@ F_PRESET_PAD, PRESET_LOGIT_ATOL = 40, 5e-2
 # matmuls): outputs in [0, 1] and the logits of a path without K2 within
 # LAST_F32_ATOL, a path through K2 (bf16 inside on both) within
 # PRESET_LOGIT_ATOL; WmForger's step: losses within TRAIN_LOG_RTOL, each
-# gradient within LAST_GRAD_RTOL of its tensor's largest (no BatchNorm)
+# gradient within LAST_GRAD_RTOL of its tensor's largest (no BatchNorm), of
+# the module's largest where the tensor's CPU gradient is exactly 0
 F_LAST, LAST_CPU_FRAMES, F_BASELINE = 32, 2, 8
 LAST_F32_ATOL, LAST_GRAD_RTOL = 1e-4, 1e-3
 # the VAE embedder's widths: the JAX module's defaults (ch_mult, z_channels,
@@ -482,9 +491,9 @@ def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
                          "runs only on a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = device_info(0)["nvidia_smi"]
+    if smi.startswith("not read"):
+        raise SystemExit(f"chip_smoke: nvidia-smi {smi}")
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     return smi, torch.cuda.get_device_name(0)
@@ -988,9 +997,56 @@ def phase_unet(dev, smi: str) -> dict:
     return rec
 
 
+def phase_tools(dev, smi: str) -> dict:
+    """The JAX package's two timing tools in the port: unet_bench.main (the
+    stages that unet_apply_fused chains, which phase `unet` holds) and
+    stage_bench.main --decompose at their defaults (128 u8 1080p frames),
+    each K2, K4 and K5 launch of the latter held against its plain version,
+    the counts of both runs, and each stage's ms printed beside the card's
+    name and power limit. No time is asserted."""
+    from videoseal_tpu_torch.evals import stage_bench, unet_bench
+
+    t0 = time.perf_counter()
+    rec = {}
+    reset_counts()
+    ub = unet_bench.main(["--k", str(TOOLS_K)])
+    sb_cap = _Capture(extra=((stage_bench, "fused_jnd_delta", "K5"),))
+    with sb_cap:
+        sb = stage_bench.main(["--decompose", "--k", str(TOOLS_K)])
+    # each stage runs TOOLS_K calls after one warm-up; a detect of the 128
+    # frames is 4 chunks of the 18 blocks: extractor(frames@256) and
+    # full_embed_extract detect, full_embed_extract embeds (K4 one), K5 runs
+    # in fused_jnd_delta+blend(fullres) and fused_jnd_delta(only)
+    calls = TOOLS_K + 1
+    detect_k2 = F_SLICE // 32 * sum(DEPTHS)
+    rec["launches"] = check_counts("tools", {"K2": 2 * calls * detect_k2, "K4": calls,
+                                             "K5": 2 * calls})
+    rec["held"] = hold_captured("tools", sb_cap.calls)
+    del sb_cap
+    torch.cuda.empty_cache()
+    names = [r["stage"] for r in ub["stages"]]
+    if names != ["encoder", "bottleneck", "decoder"]:
+        raise AssertionError(f"unet_bench printed the stages {names}")
+    want = ["unet_fused(keys)", "extractor(frames@256)", "resize_down(keys)",
+            "resize_up(preds)", "fused_jnd_delta+blend(fullres)", "full_embed_extract",
+            "fused_jnd_delta(only)", "blend_elementwise(only)", "hbm_copy_u8(frames)",
+            "hbm_copy_f32(preds_plane)"]
+    names = [r["stage"] for r in sb["stages"]]
+    if names != want:
+        raise AssertionError(f"stage_bench printed the stages {names}")
+    for tool, r, unit in (("unet_bench", ub, "per_key_us"), ("stage_bench", sb, "per_frame_us")):
+        for row in r["stages"]:
+            log(f"[tools] {tool} {row['stage']}: {row['ms']:.3f} ms, {row[unit]:.2f} "
+                f"{unit} ({smi})")
+    rec.update(unet_bench=ub["stages"], stage_bench=sb["stages"], s=time.perf_counter() - t0)
+    log(f"[tools] {rec['s']:.1f} s")
+    return rec
+
+
 def phase_jnd(dev) -> dict:
-    """K4 (delta and blend mode, u8 and f32 frames), K5, K6 against their
-    plain versions at F=4 and at F=2, 1078x1922; timed at F=128."""
+    """K4 (delta and blend mode, u8 and f32 frames), K5 (u8 and f32 frames),
+    K6 against their plain versions at F=4 and at F=2, 1078x1922; timed at
+    F=128."""
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels.fused_planar import _band
     from videoseal_tpu_torch.ops.resize import _resize_matrix, resize_bilinear
@@ -1018,8 +1074,9 @@ def phase_jnd(dev) -> dict:
         pred = resize_bilinear(pred_low[..., None], h, w)[..., 0].contiguous()
         p1 = torch.rand((f, h, w, 1), generator=g, device=dev) * 2 - 1
         p3 = torch.rand((f, h, w, 3), generator=g, device=dev) * 2 - 1
-        out["K5,f32"] = ("K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain, (f32, pred, 0.2),
-                         px * (HEAT_OPS + 1))
+        for name, im in (("u8", u8), ("f32", f32)):
+            out[f"K5,{name}"] = ("K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain,
+                                 (im, pred, 0.2), px * (HEAT_OPS + 1))
         for name, pr in (("f32,c1", p1), ("f32,c3", p3), ("bf16,c1", p1.to(torch.bfloat16)),
                          ("bf16,c3", p3.to(torch.bfloat16))):
             out[f"K6,{name}"] = ("K6", fb.fused_jnd_blend, fb.fused_jnd_blend_plain,
@@ -1057,7 +1114,7 @@ def phase_jnd(dev) -> dict:
     # masked scalar path; K5 and K6's 8-row strips and 256-column chunks
     hr, wr = H - 2, W + 2
     for key, (k, kern, plain, args, _) in cases(2, 9, hr, wr).items():
-        if k == "K4" or key in ("K5,f32", "K6,f32,c3"):
+        if k == "K4" or key in ("K5,u8", "K5,f32", "K6,f32,c3"):
             rec[key]["ragged_max_abs_err"] = hold(f"F=2 {hr}x{wr}", key, k, kern, plain, args)
     # 120x200 frames: the prediction downscaled in width, K4's general path
     for key, (k, kern, plain, args, _) in cases(2, 10, 120, 200, all_cases=False).items():
@@ -2881,17 +2938,18 @@ def phase_dist(dev, smi: str, phase17: dict) -> dict:
 
 class _Capture:
     """Wraps the kernel wrappers where the pipeline calls them (K1, K4 and K6
-    in models/videoseal.py, K2 and K3 in kernels/convnext_fused.py) for one run
-    and keeps each wrapper's first call per input shape, so that its
-    kernel can be held against its plain version on the inputs the path
-    gave it, after the run's counts are read."""
+    in models/videoseal.py, K2 and K3 in kernels/convnext_fused.py, and the
+    (module, name, kernel) of `extra`) for one run and keeps each wrapper's
+    first call per input shape, so that its kernel can be held against its
+    plain version on the inputs the path gave it, after the run's counts
+    are read."""
 
-    def __init__(self):
+    def __init__(self, extra: tuple = ()):
         from videoseal_tpu_torch.kernels import convnext_fused as cf
         from videoseal_tpu_torch.models import videoseal as mv
         self.sites = [(cf, "convnext_block_fused", "K2"), (cf, "convnext_blocks_fused", "K3"),
                       (mv, "fused_jnd_blend_up", "K4"), (mv, "fused_jnd_blend_planar", "K1"),
-                      (mv, "fused_jnd_blend", "K6")]
+                      (mv, "fused_jnd_blend", "K6"), *extra]
         self.calls = {}
 
     def __enter__(self):
@@ -2911,13 +2969,14 @@ class _Capture:
 
 def hold_captured(tag: str, calls: dict) -> dict:
     """Each captured launch against its plain version: K2 and K3 at K2's
-    tolerance, K1's and K4's u8 frames at K1's rule, K6 at BLEND_ATOL."""
+    tolerance, K1's and K4's u8 frames at K1's rule, K5 within DELTA_RTOL
+    of the plain delta's largest, K6 at BLEND_ATOL."""
     from videoseal_tpu_torch.kernels import convnext_block as cb
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels import fused_planar as fp
     plain = {"K2": cb.convnext_block_plain, "K3": cb.convnext_blocks_plain,
              "K4": fb.fused_jnd_blend_up_plain, "K1": fp.fused_jnd_blend_planar_plain,
-             "K6": fb.fused_jnd_blend_plain}
+             "K5": fb.fused_jnd_delta_plain, "K6": fb.fused_jnd_blend_plain}
     worst = {}
     for (k, shapes), (fn, args, kw) in sorted(calls.items(), key=lambda c: str(c[0])):
         a, b = fn(*args, **kw), plain[k](*args, **kw)
@@ -2939,7 +2998,8 @@ def hold_captured(tag: str, calls: dict) -> dict:
             e = (a - b).abs()
             err = float(e.max())
             log(f"[{tag}] {k} at {shapes}: max abs err {err:.3e}")
-            tol = BLEND_ATOL if k == "K6" else K2_ATOL + K2_RTOL * b.abs()
+            tol = (BLEND_ATOL if k == "K6" else DELTA_RTOL * float(b.abs().max())
+                   if k == "K5" else K2_ATOL + K2_RTOL * b.abs())
             if not bool(torch.isfinite(a).all()) or bool((e > tol).any()):
                 raise AssertionError(f"{tag}: {k} at {shapes} disagrees with its plain version")
         worst[k] = max(worst.get(k, 0.0), err)
@@ -3380,6 +3440,54 @@ def _last_baselines(dev, tmp: str, smi: str) -> dict:
     return out
 
 
+def _wmforger_inputs() -> tuple:
+    """(batch, draws) of phase 20's card-against-CPU WmForger step: two
+    synthetic 256 images and their waves-watermarked copies, one
+    perturbation's draws."""
+    import random
+
+    from videoseal_tpu_torch.data.datasets import SyntheticImages
+    from videoseal_tpu_torch.wmforger import generators
+    from videoseal_tpu_torch.wmforger import train as wtrain
+    random.seed(1)
+    np.random.seed(1)
+    imgs = torch.as_tensor(np.stack([SyntheticImages(2, 256)[i][0] for i in range(2)]))
+    batch = {"imgs": imgs, "imgs_w": generators.build_generator("waves").embed(imgs)["imgs_w"]}
+    draws = wtrain.sample_draws(torch.Generator().manual_seed(2), 1, imgs.shape, "cpu",
+                                use_rand_perturbation=True)
+    return batch, draws
+
+
+def _wmforger_step(d, img, batch: dict, draws: dict) -> tuple:
+    """A convnext_tiny preference model (init seed 0) on device d: 3 optimize
+    steps on img, then one train step of every option (bt_nll, a
+    perturbation step, gradient matching, the strength contrast) ->
+    (logs, each parameter's gradient on the CPU, the optimized image)."""
+    from videoseal_tpu_torch.models.videoseal import init_weights
+    from videoseal_tpu_torch.wmforger import optimize_image as wopt
+    from videoseal_tpu_torch.wmforger import train as wtrain
+    m = wtrain.build_preference_model(256, [3, 3, 9, 3], [96, 192, 384, 768])
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.to(d)
+    o = wopt.optimize(img.to(d), m, 3).cpu()
+    step = wtrain.make_train_step(m, "bt_nll", torch.optim.AdamW(m.parameters()),
+                                  n_perturbation_steps=1, grad_matching=True,
+                                  strength_contrasting=True)
+    logs = step({n: v.to(d) for n, v in batch.items()}, dict(draws, init=draws["init"].to(d)))
+    return logs, {n: p.grad.float().cpu() for n, p in m.named_parameters()}, o
+
+
+def _grad_err(card: dict, cpu: dict) -> float:
+    """The largest of each gradient's max |card - CPU| over its tensor's
+    largest CPU value. A tensor whose CPU gradient is exactly 0 (the
+    preference head's bias: the Bradley-Terry loss reads only score
+    differences) has no scale of its own, and its error is taken over the
+    module's largest CPU gradient."""
+    top = max(float(g.abs().max()) for g in cpu.values())
+    return max(float((card[n] - g).abs().max()) / (float(g.abs().max()) or top)
+               for n, g in cpu.items())
+
+
 def _last_wmforger(dev, tmp: str, smi: str) -> dict:
     """wmforger.train.main at convnext_tiny's full width (img 256, batch 8):
     WMF_STEPS steps with one ascent step, WMF_GM_STEPS with gradient
@@ -3390,8 +3498,7 @@ def _last_wmforger(dev, tmp: str, smi: str) -> dict:
     import random
 
     from videoseal_tpu_torch.data.datasets import SyntheticImages
-    from videoseal_tpu_torch.models.videoseal import init_weights
-    from videoseal_tpu_torch.wmforger import generators, optimize_image as wopt
+    from videoseal_tpu_torch.wmforger import optimize_image as wopt
     from videoseal_tpu_torch.wmforger import train as wtrain
     common = ["--synthetic", "1", "--batch_size", str(WMF_BATCH), "--img_size", "256"]
     rec = {}
@@ -3429,38 +3536,20 @@ def _last_wmforger(dev, tmp: str, smi: str) -> dict:
         raise AssertionError("wmforger optimize: not finite")
 
     # the card against the CPU: one step of every option, 3 optimize steps
-    mods = {}
-    for k, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        m = wtrain.build_preference_model(256, [3, 3, 9, 3], [96, 192, 384, 768])
-        init_weights(m, torch.Generator().manual_seed(0))
-        mods[k] = m.to(d)
-    random.seed(1)
-    np.random.seed(1)
-    imgs = torch.as_tensor(np.stack([SyntheticImages(2, 256)[i][0] for i in range(2)]))
-    batch = {"imgs": imgs, "imgs_w": generators.build_generator("waves").embed(imgs)["imgs_w"]}
-    draws = wtrain.sample_draws(torch.Generator().manual_seed(2), 1, imgs.shape, "cpu",
-                                use_rand_perturbation=True)
-    logs, grads, o = {}, {}, {}
+    batch, draws = _wmforger_inputs()
     with tf32_off():
-        for k, m in mods.items():
-            d = next(m.parameters()).device
-            o[k] = wopt.optimize(img.to(d), m, 3).cpu()
-            step = wtrain.make_train_step(m, "bt_nll", torch.optim.AdamW(m.parameters()),
-                                          n_perturbation_steps=1, grad_matching=True,
-                                          strength_contrasting=True)
-            logs[k] = step({n: v.to(d) for n, v in batch.items()},
-                           dict(draws, init=draws["init"].to(d)))
-            grads[k] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+        card_logs, card_grads, card_opt = _wmforger_step(dev, img, batch, draws)
+        logs, grads, opt_cpu = _wmforger_step(torch.device("cpu"), img, batch, draws)
     # the losses (acc and ranking count signs, which a logit near 0 may flip)
-    log_err = max(abs(float(logs["card"][n]) - float(v)) / max(abs(float(v)), 1e-6)
-                  for n, v in logs["cpu"].items() if n.startswith("loss"))
-    grad_err = max(float((grads["card"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-12)
-                   for n, g in grads["cpu"].items())
-    opt_err = float((o["card"] - o["cpu"]).abs().max())
+    log_err = max(abs(float(card_logs[n]) - float(v)) / max(abs(float(v)), 1e-6)
+                  for n, v in logs.items() if n.startswith("loss"))
+    grad_err = _grad_err(card_grads, grads)
+    opt_err = float((card_opt - opt_cpu).abs().max())
     rec["cpu"] = {"log_rel": log_err, "grad_rel": grad_err, "optimize_max": opt_err}
     log(f"[last] wmforger, card vs CPU (float32, TF32 off, batch 2, every option): logs "
         f"{log_err:.3e} relative (tolerance {TRAIN_LOG_RTOL}), gradients {grad_err:.3e} of "
-        f"each tensor's largest (tolerance {LAST_GRAD_RTOL}); optimize, 3 steps: {opt_err:.3e} "
+        f"each tensor's largest, the module's where a tensor's is 0 (tolerance "
+        f"{LAST_GRAD_RTOL}); optimize, 3 steps: {opt_err:.3e} "
         f"(tolerance {LAST_F32_ATOL})")
     if log_err > TRAIN_LOG_RTOL or grad_err > LAST_GRAD_RTOL or opt_err > LAST_F32_ATOL:
         raise AssertionError("wmforger: card and CPU disagree")
@@ -4056,6 +4145,7 @@ def main() -> int:
     rec["K2"] = phase_k2(dev)
     rec["slice"] = phase_slice(dev, smi)
     rec["unet"] = phase_unet(dev, smi)
+    rec["tools"] = phase_tools(dev, smi)
     rec["jnd"] = phase_jnd(dev)
     rec["nhwc"] = phase_nhwc(dev, smi)
     rec["chunky"] = phase_chunky(dev, smi)
@@ -4077,7 +4167,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
-    paths = [rec[p]["launches"] for p in ("slice", "nhwc", "chunky", "pixelseal", "v0",
+    paths = [rec[p]["launches"] for p in ("slice", "tools", "nhwc", "chunky", "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
                                             "attacks", "train", "dist", "presets", "last",
                                             "rest", "bench")]

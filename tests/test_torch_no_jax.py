@@ -6,9 +6,9 @@ checkpoint; and the training entry point's --help), the temporal, pixelwise
 and HiDDeN models and the inflation script, the VAE, DVMark and DINO models,
 the TorchScript baselines and WmForger, the audio watermark, the card files
 and the PIL-semantics resize, the package-level exports, the scorer
-(``bench``) and the detect-input eval, and import every other module, without them
-(and without PIL, and without cv2, which the streaming path and the exact
-codecs import only where they need it). The examples' and notebooks' code
+(``bench``), the detect-input eval and the two timing tools, and import
+every other module, without them (and without PIL, and without cv2, which
+the streaming path and the exact codecs import only where they need it). The examples' and notebooks' code
 imports none of jax, yaml, PIL or the JAX package either."""
 
 import os
@@ -241,6 +241,14 @@ assert line["mode"] == "lowres_attenuation" and "vs_baseline" not in line
 assert detect_input.run(model, detect_input.smooth_frames(2, 64, 96, 0))[-1]["imgs_w_equal"]
 assert (train.augmentation_config("videoseal_tpu/configs/augs_identity.yaml")
         == augmentation.AUGS["augs_identity"])
+
+# the timing tools on the CPU
+from videoseal_tpu_torch.evals import stage_bench, unet_bench
+rec = unet_bench.main(["--device", "cpu", "--card", card_128, "--keys", "2", "--k", "1"])
+assert [r["stage"] for r in rec["stages"]] == ["encoder", "bottleneck", "decoder"]
+rec = stage_bench.main(["--device", "cpu", "--card", card_128, "--frames", "2", "--height",
+                        "64", "--width", "96", "--k", "1"])
+assert rec["device"] == "cpu" and len(rec["stages"]) == 5
 print("OK")
 """
 

@@ -17,21 +17,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 import numpy as np
 import torch
 
-from ..utils.timing import cuda_ms
-
-
-def _host_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn() on the CPU after one warm-up call."""
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+from ..utils.timing import cuda_ms, host_ms
 
 
 def test_speed(model, frames, num_runs: int = 8, is_video: bool = True,
@@ -52,7 +42,7 @@ def test_speed(model, frames, num_runs: int = 8, is_video: bool = True,
         return detect_pipeline(model.extractor, model.cfg, frames)
 
     cuda = model.device.type == "cuda"
-    timer = cuda_ms if cuda else _host_ms
+    timer = cuda_ms if cuda else host_ms
     t_embed = timer(embed_once, num_runs) / 1e3
     t_extract = timer(extract_once, num_runs) / 1e3
 

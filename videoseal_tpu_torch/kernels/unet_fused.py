@@ -119,38 +119,64 @@ def fused_params(unet: nn.Module) -> dict:
     return hit[1]
 
 
-def unet_apply_fused(unet: nn.Module, x: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
-    """``UNetMsg``'s forward on NHWC input in [0, 1] (the embedder's x*2-1
-    preprocess inside) -> NHWC output. The module must be in eval mode and
-    take no gradient: the fold reads the running statistics, under no
-    autograd graph."""
-    fp = fused_params(unet)
+def encoder(unet: nn.Module, x: torch.Tensor, fp: dict | None = None) -> list:
+    """The input block and the down levels on NHWC x in [-1, 1] (after the
+    embedder's x*2-1): each level's activation, the latent last. `fp` is
+    ``fused_params(unet)``, read here when not given."""
+    fp = fused_params(unet) if fp is None else fp
     act = unet.inc.double_conv[2]
-    x = x * 2 - 1
-    x = _resnet_block(x, unet.inc, fp, act)
-    hiddens = [x]
+    hiddens = [_resnet_block(x, unet.inc, fp, act)]
     for d in unet.downs:
         y = _conv(hiddens[-1], fp[d.down], stride=2)
         hiddens.append(_resnet_block(y, d.conv, fp, act))
+    return hiddens
 
-    # message injection: the embedding in float32, cast to the latent's dtype
+
+def inject(unet: nn.Module, lat: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """The (K, hidden) message embedding, cast to the latent's dtype,
+    broadcast over the latent and concatenated to it on channels (added,
+    where the processor adds)."""
     mp = unet.msg_processor
-    lat = hiddens.pop()
-    emb = mp.message_embedding(msgs).to(lat.dtype)[:, None, None, :]
-    emb = emb.expand(*lat.shape[:-1], mp.hidden_size)
-    y = lat + emb if mp.msg_agg == "add" else torch.cat([lat, emb], dim=-1)
-    hiddens.append(y)
+    e = emb.to(lat.dtype)[:, None, None, :].expand(*lat.shape[:-1], mp.hidden_size)
+    return lat + e if mp.msg_agg == "add" else torch.cat([lat, e], dim=-1)
+
+
+def bottleneck(unet: nn.Module, y: torch.Tensor, fp: dict | None = None) -> torch.Tensor:
+    """The bottleneck's blocks on `inject`'s output."""
+    fp = fused_params(unet) if fp is None else fp
+    act = unet.inc.double_conv[2]
     for blk in unet.bottleneck.model:
         y = _resnet_block(y, blk, fp, act)
+    return y
 
+
+def decoder(unet: nn.Module, y: torch.Tensor, hiddens: list,
+            fp: dict | None = None) -> torch.Tensor:
+    """The up levels and the output conv. `hiddens` are the skips, popped
+    from the end: the encoder's levels with the latent replaced by
+    `inject`'s output, the first skip."""
+    fp = fused_params(unet) if fp is None else fp
+    act = unet.inc.double_conv[2]
+    hs = list(hiddens)
     scale = 2 ** -0.5
     for u in unet.ups:
-        y = torch.cat([y, hiddens.pop() * scale], dim=-1)
+        y = torch.cat([y, hs.pop() * scale], dim=-1)
         y = _upsample(y, u.up, fp, act)
         y = _resnet_block(y, u.conv, fp, act)
-
     y = _conv(y, fp[unet.outc], padding=0)
     return torch.tanh(y) if unet.last_tanh else y
+
+
+def unet_apply_fused(unet: nn.Module, x: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
+    """``UNetMsg``'s forward on NHWC input in [0, 1] (the embedder's x*2-1
+    preprocess inside) -> NHWC output: `encoder`, `inject`, `bottleneck`,
+    `decoder`. The module must be in eval mode and take no gradient: the
+    fold reads the running statistics, under no autograd graph."""
+    fp = fused_params(unet)
+    hiddens = encoder(unet, x * 2 - 1, fp)
+    # message injection: the embedding in float32, cast to the latent's dtype
+    y = inject(unet, hiddens.pop(), unet.msg_processor.message_embedding(msgs))
+    return decoder(unet, bottleneck(unet, y, fp), hiddens + [y], fp)
 
 
 def supports_unet_fused(unet_cfg: dict) -> bool:
