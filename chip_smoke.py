@@ -46,7 +46,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      K4's four cases, K5 on both frame types and K6 again at F=2 and
      1078x1922 (unaligned rows, ragged groups, strips and chunks), K4's
      four at F=2 and 120x200 (its general width path), and K5(resize(pred))
-     against K4(pred); times each and its plain version at F=128;
+     against K4(pred); K5 bit for bit against its plain version and against
+     its parent, the strip design (K7's full_nosqrt at rs=8), also at
+     120x200 and its geometry's edges (K5_EDGES); times each and its plain
+     version at F=128, K5 in turns with its parent and over its geometry's
+     sweep (K5_SWEEP), with each instance's registers and shared memory;
   7. the NHWC slice: videoseal_1.0 at random init (seed 0) in bf16, embed
      of 128 u8 1080p frames as a video, detect and extract_message of the
      result, embed of 32 float frames as images; checks shapes, launch
@@ -70,7 +74,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      route's on 4 frames; times both routes in turns;
  11. the probes: every K7 variant (all strip heights, f32 and u8 frames)
      against its plain version at a small ragged size, K7's production
-     variant against K5; then each probe's main() at the TPU probe's shapes
+     variant against K5 (the strip design against the row-streaming one,
+     bit for bit); then each probe's main() at the TPU probe's shapes
      (JSON lines); then every case of both sweeps against its plain version
      on the sweep's inputs and shapes (K7 at F=128, 1080p; K8 at
      128x64x64x96 and 128x32x32x192), K8's production_block on a zero
@@ -424,6 +429,12 @@ STAGE_A_FLAGS = ("--card", "videoseal_1.0", "--nbits", "32", "--img_size", "128"
                  "--scaling_w", "1.0", "--optimizer", "AdamW,lr=5e-4",
                  "--scheduler", "CosineLRScheduler,lr_min=1e-6,t_initial=15,warmup_t=1",
                  "--augmentation_config", "videoseal_tpu/configs/augs_identity.yaml")
+# K5's geometry edges, (F, H, W): a height that no swept strip divides, a
+# frame of 3 rows, a width under 16, a ragged last band on the 16-byte
+# path (1040: bands of 528 and 512 columns); and its sweep at F=128, 1080p:
+# (output rows, columns at most) a block, a whole 1080p row or half of one
+K5_EDGES = ((2, 37, 200), (2, 3, 200), (2, 4, 15), (2, 20, 1040))
+K5_SWEEP = tuple((r, b) for r in (16, 32, 64) for b in (2048, 1024))
 # published H100 SXM peaks: HBM bytes/s, bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # f32 operations per pixel of jnd_heat.cuh and the luminance before it,
@@ -1043,10 +1054,80 @@ def phase_tools(dev, smi: str) -> dict:
     return rec
 
 
-def phase_jnd(dev) -> dict:
+def k5_inputs(f: int, h: int, w: int, seed: int, dev) -> list:
+    """u8 and [0, 1) f32 frames (f, h, w, 3) and a prediction in [-1, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u8 = torch.randint(0, 256, (f, h, w, 3), generator=g, device=dev, dtype=torch.uint8)
+    f32 = torch.rand((f, h, w, 3), generator=g, device=dev)
+    pred = torch.rand((f, h, w), generator=g, device=dev) * 2 - 1
+    return [("u8", u8, pred), ("f32", f32, pred)]
+
+
+def k5_turns(key: str, args: tuple, out: torch.Tensor, bound_ms: float, smi: str) -> dict:
+    """K5 at F=128 against its parent, the strip design (K7's full_nosqrt at
+    rs=8, bit for bit the same delta), in turns (parent, K5, K5, parent),
+    then over K5's geometry sweep (K5_SWEEP: output rows and columns a
+    block), each instance bit for bit the default's, with its
+    registers, spills, shared memory and blocks an SM; and K5's split
+    (jnd_probe.k5_split). No time is asserted."""
+    from videoseal_tpu_torch.kernels import fused_blend as fb
+    from videoseal_tpu_torch.kernels import jnd_probe as jp
+    imgs, pred, sw = args
+    u8 = imgs.dtype == torch.uint8
+    if not torch.equal(out, jp.jnd_probe(imgs, pred, sw, "full_nosqrt", 8)):
+        raise AssertionError(f"{key} differs from its parent at F={F_SLICE}")
+    parent = lambda: jp.jnd_probe(imgs, pred, sw, "full_nosqrt", 8)
+    kern = lambda: fb.fused_jnd_delta(imgs, pred, sw)
+    turns = [cuda_ms(f, reps=10) for f in (parent, kern, kern, parent)]
+    log(f"[K5] F={F_SLICE} {key} in turns (parent, K5, K5, parent): "
+        + ", ".join(f"{t:.3f}" for t in turns) + f" ms; bound {bound_ms:.3f} ms: K5 at "
+        f"{bound_ms / turns[1]:.1%} / {bound_ms / turns[2]:.1%}, the parent at "
+        f"{bound_ms / turns[0]:.1%} / {bound_ms / turns[3]:.1%} ({smi})")
+    # K5's own split at its geometry: the copies, luminance and window
+    # (copy), the stencil sums (sums), the whole heat; each bit for bit its
+    # plain version
+    split = {}
+    for mode in jp.SPLIT_MODES:
+        got = jp.k5_split(imgs, pred, sw, mode)
+        if not torch.equal(got, jp.jnd_probe_plain(imgs, pred, sw, mode)):
+            raise AssertionError(f"{key}: K5's split {mode} differs from its plain version")
+        del got
+        split[mode] = cuda_ms(lambda: jp.k5_split(imgs, pred, sw, mode), reps=10)
+    log(f"[K5] F={F_SLICE} {key} split at its geometry: " + ", ".join(
+        f"{m} {t:.3f} ms ({bound_ms / t:.1%})" for m, t in split.items()) + f" ({smi})")
+    h, w = imgs.shape[1:3]
+    sweep, infos = [], {}
+    for rows, band_max in K5_SWEEP:
+        geo = fb.k5_geometry(h, w, u8, rows, band_max)
+        band = geo["band"]
+        if band not in infos:
+            infos[band] = fb.k5_info(u8, band)
+            if infos[band]["smem"] != geo["smem"] or infos[band]["threads"] != geo["threads"]:
+                raise AssertionError(f"k5_geometry {geo} disagrees with the kernel's "
+                                     f"{infos[band]}")
+        run = lambda: fb._delta_cuda(imgs, pred, sw, rows=rows, band_max=band_max)
+        if not torch.equal(run(), out):
+            raise AssertionError(f"{key} at rows {rows}, band {band} differs from the default "
+                                 f"geometry's")
+        ms = cuda_ms(run, reps=10)
+        sweep.append(dict(rows=rows, band=band, stages=geo["stages"], ms=ms, share=bound_ms / ms,
+                          **infos[band]))
+        log(f"[K5] F={F_SLICE} {key} sweep: rows {rows}, band {band}, stages {geo['stages']}: "
+            f"{ms:.3f} ms, {bound_ms / ms:.1%} of the bound; {infos[band]['registers']} "
+            f"registers, {infos[band]['local_bytes']} B local, {geo['smem']} B shared, "
+            f"{geo['threads']} threads, {infos[band]['blocks_per_sm']} blocks an SM")
+    return {"turns_ms": turns, "parent_ms": (turns[0] + turns[3]) / 2, "split_ms": split,
+            "sweep": sweep}
+
+
+def phase_jnd(dev, smi: str) -> dict:
     """K4 (delta and blend mode, u8 and f32 frames), K5 (u8 and f32 frames),
-    K6 against their plain versions at F=4 and at F=2, 1078x1922; timed at
-    F=128."""
+    K6 against their plain versions at F=4 and at F=2, 1078x1922; K5 bit for
+    bit, also at its geometry's edges (K5_EDGES) and against its parent, the
+    strip design (K7's full_nosqrt at rs=8); timed at F=128, K5 in turns
+    with the parent and over its geometry's sweep (K5_SWEEP), with each
+    instance's registers and shared memory."""
+    from videoseal_tpu_torch.kernels import jnd_probe as jp
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels.fused_planar import _band
     from videoseal_tpu_torch.ops.resize import _resize_matrix, resize_bilinear
@@ -1098,7 +1179,7 @@ def phase_jnd(dev) -> dict:
             return err
         err = float((a - b).abs().max())
         tol = (BLEND_ATOL if k == "K6" else K4_BLEND_F32_ATOL if key.startswith("K4b")
-               else DELTA_RTOL * float(b.abs().max()))
+               else 0.0 if k == "K5" else DELTA_RTOL * float(b.abs().max()))
         log(f"[{k}] {tag} {key}: max abs err {err:.3e} (tolerance {tol:.3e}), "
             f"max |plain| {float(b.abs().max()):.4f}")
         if not bool(torch.isfinite(a).all()) or err > tol:
@@ -1119,6 +1200,25 @@ def phase_jnd(dev) -> dict:
     # 120x200 frames: the prediction downscaled in width, K4's general path
     for key, (k, kern, plain, args, _) in cases(2, 10, 120, 200, all_cases=False).items():
         rec[key]["small_max_abs_err"] = hold("F=2 120x200", key, k, kern, plain, args)
+    # K5's geometry at its edges, against its plain version and its parent
+    # (K7's full_nosqrt at rs=8), both bit for bit
+    _, he, we = K5_EDGES[-1]
+    for u8 in (True, False):
+        geo = fb.k5_geometry(he, we, u8)
+        if geo["bands"] * geo["band"] <= we or not geo["vec_frames"]:
+            raise AssertionError(f"K5's edge {he}x{we} has no ragged band on the 16-byte "
+                                 f"path: {geo}")
+    for i, (f, h, w) in enumerate(((2, 120, 200),) + K5_EDGES):
+        for name, im, pred in k5_inputs(f, h, w, 20 + i, dev):
+            key, tag = f"K5,{name}", f"F={f} {h}x{w}"
+            err = hold(tag, key, "K5", fb.fused_jnd_delta, fb.fused_jnd_delta_plain,
+                       (im, pred, 0.2))
+            same = torch.equal(fb.fused_jnd_delta(im, pred, 0.2),
+                               jp.jnd_probe(im, pred, 0.2, "full_nosqrt", 8))
+            log(f"[K5] {tag} {name}: identical to the parent (K7 full_nosqrt, rs=8): {same}")
+            if not same:
+                raise AssertionError(f"K5 differs from its parent at {tag} {name}")
+            rec[key][f"edge_{h}x{w}"] = err
     torch.cuda.empty_cache()
     # K5 on the upsampled prediction is K4 on the low-res one
     pred_full = small["K5,f32"][3][1]
@@ -1142,9 +1242,12 @@ def phase_jnd(dev) -> dict:
         log(f"[{k}] F={F_SLICE} {key}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of it")
         rec[key].update(ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by)
+        if k == "K5":
+            rec[key].update(k5_turns(key, args, out, bound_ms, smi))
         del out
         torch.cuda.empty_cache()
-    # K4: its main-path instance, the blend mode on u8 frames (NHWC embed)
+    # K4: its main-path instance, the blend mode on u8 frames (NHWC embed);
+    # K5 on f32 frames, the instance its earlier rows were timed on
     main_case = {"K4": "K4b,u8", "K5": "K5,f32", "K6": "K6,f32,c3"}
     return {k: dict(rec[c], case=c, max_abs_err=worst[k]) for k, c in main_case.items()} | {
         "checks": rec}
@@ -4146,7 +4249,7 @@ def main() -> int:
     rec["slice"] = phase_slice(dev, smi)
     rec["unet"] = phase_unet(dev, smi)
     rec["tools"] = phase_tools(dev, smi)
-    rec["jnd"] = phase_jnd(dev)
+    rec["jnd"] = phase_jnd(dev, smi)
     rec["nhwc"] = phase_nhwc(dev, smi)
     rec["chunky"] = phase_chunky(dev, smi)
     rec["K3"] = phase_k3(dev)
@@ -4194,13 +4297,14 @@ def main() -> int:
         for k, (name, src, tpu) in sources.items()]
     # K2 is four launches from two sources on the shared parts' headers and
     # the GEMM core, which K3 and K8 run too; K1 and K4 share blend_up.cuh
-    # (and the heat with K5-K7)
+    # (and the heat with K5-K7); K5 runs jnd_rows.cuh's kernel
     parts = ("convnext_dwln.cuh", "convnext_pw.cuh", "gemm_tn.cuh")
     for i, files in ((1, ("convnext_dwln.cu", "convnext_pw.cu", *parts)),
                      (2, ("convnext_group.cu", "convnext_group_f32.cu", "convnext_group.cuh",
                           *parts)),
                      (7, ("convnext_probe.cu", *parts)),
                      (0, ("fused_planar.cu", "blend_up.cuh", "jnd_heat.cuh")),
+                     (4, ("jnd_delta.cu", "jnd_rows.cuh", "jnd_heat.cuh")),
                      (3, ("jnd_up.cu", "blend_up.cuh", "jnd_heat.cuh"))):
         kernels[i]["sources"] = [f"videoseal_tpu_torch/csrc/{f}" for f in files]
     log(f"[main] every phase in {time.perf_counter() - t0:.1f} s")

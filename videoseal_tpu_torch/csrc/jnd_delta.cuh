@@ -1,5 +1,7 @@
-// The strip kernel of K5, K6 (jnd_delta.cu) and of the K7 probe
-// (jnd_probe.cu), and its launcher. K4 runs its own design (jnd_up.cu).
+// The strip kernel of K6 (jnd_delta.cu) and of the K7 probe
+// (jnd_probe.cu), and its launcher. K5 ran it until its row-streaming
+// kernel (jnd_rows.cuh); K7's full_nosqrt at rs = 8 is that earlier K5, bit
+// for bit. K4 runs its own design (jnd_up.cu).
 //
 // Design (simple and right first):
 //  * One block per (frame, strip of RS rows); the block sweeps the strip in
@@ -12,10 +14,9 @@
 //  * The heat is jnd_heat() of jnd_heat.cuh.
 //  * The epilogues use __fmul_rn/__fadd_rn where a contraction into an FMA
 //    would round otherwise than the plain version.
-//  * Template parameters beyond the three kernels' epilogue (MODE) and input
+//  * Template parameters beyond the kernels' epilogue (MODE) and input
 //    types: the strip height R and the heat mode HM (jnd_heat.cuh), which
-//    the K7 probe sweeps. K5 and K6 are the instances R = RS = 8,
-//    HM = kHeatNoSqrt.
+//    the K7 probe sweeps. K6 is the instance R = RS = 8, HM = kHeatNoSqrt.
 
 #pragma once
 

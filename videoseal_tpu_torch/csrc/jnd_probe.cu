@@ -1,12 +1,15 @@
-// K7: the attribution probe of K5, the instances of K5's strip kernel
-// (jnd_delta.cuh) with the heat switched and the strip height swept.
+// K7: the attribution probe of the strip kernel (jnd_delta.cuh) that K6
+// runs, in K5's delta form: the instances with the heat switched and the
+// strip height swept. vs_jnd_probe(mode = 3, rs = 8) is K5's earlier strip
+// design, the parent of its row-streaming kernel (jnd_rows.cuh): the same
+// delta bit for bit.
 //
 // Replaces videoseal_tpu/kernels/jnd_probe.py::run (body _build): K5's
 // epilogue, with the heat switched by HM (jnd_heat.cuh: copy, sums, sqrt,
 // and the production cm2^1.2) and the strip height R swept over 4, 8, 16, 32
 // (the TPU probe swept its row tile). copy writes sw * lum(y, x - 2) + pred:
 // the TPU probe's read of its padded plane two columns left of the centre,
-// mirrored exactly. vs_jnd_probe(mode = 3, rs = 8) is K5's own kernel.
+// mirrored exactly.
 
 #include "jnd_delta.cuh"
 

@@ -42,7 +42,9 @@ SIGNATURES = {
     "vs_cnx_group_bf16_info": [I] * 5 + [P],
     "vs_cnx_probe": [P] * 16 + [I] * 6 + [P],
     "vs_jnd_up": [P, I, P, P, P, I, P, P, I, P, I] + [I] * 6 + [F] * 5 + [P],
-    "vs_jnd_delta": [P, I, P, P] + [I] * 3 + [F] * 4 + [P],
+    "vs_jnd_delta": [P, I, P, P] + [I] * 7 + [F] * 4 + [P],
+    "vs_jnd_delta_info": [I, I, P],
+    "vs_jnd_delta_split": [P, I, P, P] + [I] * 7 + [F] * 4 + [I, P],
     "vs_jnd_blend": [P, P, I, I, P] + [I] * 3 + [F] * 5 + [P],
     "vs_jnd_probe": [P, I, P, P] + [I] * 3 + [F] * 4 + [I, I, P],
 }

@@ -1,9 +1,11 @@
 """K4, K5, K6: full-resolution JND on NHWC frames.
 
 Counterpart of ``videoseal_tpu/kernels/fused_blend.py``. The CUDA kernels
-(K4: ``csrc/jnd_up.cu`` on ``csrc/blend_up.cuh``, shared with K1; K5, K6:
-``csrc/jnd_delta.cu`` and ``.cuh``; the heat in ``csrc/jnd_heat.cuh``) say
-what bounds them on the H100 and how they are laid out. This module holds
+(K4: ``csrc/jnd_up.cu`` on ``csrc/blend_up.cuh``, shared with K1; K5:
+``csrc/jnd_delta.cu`` on the row-streaming kernel of ``csrc/jnd_rows.cuh``;
+K6: ``csrc/jnd_delta.cu`` on the strip kernel of ``csrc/jnd_delta.cuh``; the
+heat in ``csrc/jnd_heat.cuh``) say what bounds them on the H100 and how they
+are laid out. This module holds
 the plain PyTorch versions, which follow the kernels' formulation (cm2^1.2 as
 exp(log(cm2) * 1.2), the luminance weights on the input's scale), and the
 wrappers, which take the plain version for a CPU tensor and launch the kernel
@@ -22,6 +24,7 @@ path calls it.
 
 The kernels take any H and W. The TPU's tile pickers and VMEM budget are not
 carried over; ``supports_fused_blend`` keeps the math conditions only.
+``k5_geometry`` is K5's launch geometry, a pure function of the shape.
 """
 
 from __future__ import annotations
@@ -36,6 +39,17 @@ from . import _lib
 from .fused_planar import RS, _tables, _width_resized, _window_ld, _window_rows
 
 _RGB_W = (0.299, 0.587, 0.114)
+
+# K5's geometry (csrc/jnd_rows.cuh): output rows a block and columns a block
+# at most, on both frame types the fastest of the sweep that chip_smoke.py's
+# phase `jnd` times (K5_SWEEP) at F=128, 1080p on an H100 80GB HBM3 at 700 W
+# (half a 1080p row a block). K5_STAGES, the raw rows in flight by frame
+# type (True: u8 frames), copies jnd_rows::stages_of, and k5_geometry's
+# shared memory copies jnd_rows::smem_bytes: both must follow a change there
+# (chip_smoke.py holds them against the kernel's own query).
+K5_ROWS, K5_BAND = 64, 1024
+K5_STAGES = {True: 4, False: 3}
+K5_MAX_BAND = 2048   # columns a block at most: 512 threads of 4 pixels
 
 
 def supports_fused_blend(pred_channels: int, attenuation, blending_method: str) -> bool:
@@ -193,14 +207,57 @@ def _blend_up_cuda(imgs, pred_low, scaling_i, scaling_w):
     return _up_cuda(imgs, pred_low, scaling_i, scaling_w, blend=True)
 
 
-def _delta_cuda(imgs, pred, scaling_w):
+def k5_geometry(h: int, w: int, u8: bool, rows: int | None = None,
+                band_max: int | None = None, ptrs: tuple = (0, 0, 0)) -> dict:
+    """K5's launch geometry for (F, h, w, 3) frames (u8 or f32), as
+    csrc/jnd_rows.cuh lays it out: a block owns `rows` output rows of one
+    frame (`strips` down it) and `band` columns (`bands` across, the band a
+    multiple of 16 of at most `band_max`), with `threads` threads (4
+    pixels each) and `stages` raw row stages; `smem` its dynamic shared
+    memory in bytes. vec_frames: the frames' 16-byte copies run (row pitch
+    and base 16-byte aligned); vec_planes: the prediction's and the
+    output's (W % 4 == 0, both bases aligned); ptrs = (img, pred, out) base
+    addresses. Runs nothing."""
+    rows = K5_ROWS if rows is None else rows
+    band_max = K5_BAND if band_max is None else band_max
+    if rows < 1 or band_max % 16 or not 16 <= band_max <= K5_MAX_BAND:
+        raise ValueError(f"k5_geometry: rows {rows}, band_max {band_max}")
+    per_band = -(-w // -(-w // band_max))   # the columns split evenly over the bands
+    band = -(-per_band // 16) * 16
+    stages, es = K5_STAGES[u8], 1 if u8 else 4
+    img, pred, out = ptrs
+    return {"rows": rows, "strips": -(-h // rows), "band": band, "bands": -(-w // band),
+            "threads": -(-band // 128) * 32, "stages": stages,
+            "smem": 4 * 6 * (band + 4) + stages * (3 * es * band + 64) + (stages + 1) * 4 * band,
+            "vec_frames": (w * 3 * es) % 16 == 0 and img % 16 == 0,
+            "vec_planes": w % 4 == 0 and pred % 16 == 0 and out % 16 == 0}
+
+
+def k5_info(u8: bool, band: int) -> dict:
+    """What the card reports for K5's instance: registers and local-memory
+    (spill) bytes a thread, the shared memory and threads of a block at
+    `band` columns, and blocks an SM by the occupancy query."""
+    import ctypes
+    info = (ctypes.c_int * 5)()
+    _lib.check(_lib.library().vs_jnd_delta_info(int(u8), band, info), "vs_jnd_delta_info")
+    return dict(zip(("registers", "local_bytes", "smem", "threads", "blocks_per_sm"), info))
+
+
+def _delta_cuda(imgs, pred, scaling_w, **geometry):
+    """K5's launch; geometry overrides k5_geometry's rows and band_max (the
+    sweep's)."""
     f, h, w = _check_frames("fused_jnd_delta", imgs, (torch.uint8, torch.float32))
     _check_plane("fused_jnd_delta", pred, (f, h, w), (torch.float32,), imgs.device)
     out = torch.empty((f, h, w), dtype=torch.float32, device=imgs.device)
+    if out.numel() == 0:
+        return out
+    u8 = imgs.dtype == torch.uint8
+    geo = k5_geometry(h, w, u8, ptrs=(imgs.data_ptr(), pred.data_ptr(), out.data_ptr()),
+                      **geometry)
     _lib.check(_lib.library().vs_jnd_delta(
-        imgs.data_ptr(), int(imgs.dtype == torch.uint8), pred.data_ptr(), out.data_ptr(),
-        f, h, w, *_lum_weights(imgs), float(scaling_w), _lib.stream_ptr(imgs)),
-        "vs_jnd_delta")
+        imgs.data_ptr(), int(u8), pred.data_ptr(), out.data_ptr(), f, h, w, geo["rows"],
+        geo["band"], int(geo["vec_frames"]), int(geo["vec_planes"]), *_lum_weights(imgs),
+        float(scaling_w), _lib.stream_ptr(imgs)), "vs_jnd_delta")
     return out
 
 

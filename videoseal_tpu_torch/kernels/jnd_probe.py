@@ -2,9 +2,9 @@
 not a serving path)
 
 Counterpart of ``videoseal_tpu/kernels/jnd_probe.py``. The TPU probe built
-four kernels on K5's grid; here they are instances of K5's own CUDA kernel
+four kernels on K5's grid; here they are instances of the strip kernel
 (``csrc/jnd_probe.cu`` on ``jnd_delta.cuh``, heat in ``jnd_heat.cuh``), so
-every variant times the production staging of NHWC frames with parts
+every variant times the strip kernel's staging of NHWC frames with parts
 switched off:
 
   copy         stage the luminance, write sw * lum(y, x - 2) + pred (the
@@ -13,11 +13,15 @@ switched off:
   sums         the 5x5/3x3 luminance sums and the Sobel, no
                transcendentals: (sw * (la + cm2)) * pred
   full         the heat through sqrt(cm2)^2.4
-  full_nosqrt  the production heat, cm2^1.2: K5 itself
+  full_nosqrt  the production heat, cm2^1.2: K5's delta
 
 and the TPU's row-tile sweep becomes a sweep of the strip height ``rs``
-(rows per block; K4-K6 use 8). The probe reads f32 frames, as the TPU probe
-read f32 planes, and the u8 frames of K4's route.
+(rows per block; K6 uses 8). The probe reads f32 frames, as the TPU probe
+read f32 planes, and the u8 frames of K4's route. That strip kernel is K6's
+and K5's earlier design: K5 now runs the row-streaming kernel of
+``csrc/jnd_rows.cuh``, whose delta K7's full_nosqrt at rs=8 equals bit for
+bit. ``k5_split`` is the same split of that kernel (``csrc/jnd_rows_split.cu``:
+copy, sums, full_nosqrt at K5's geometry).
 
 Run on the card: python -m videoseal_tpu_torch.kernels.jnd_probe
 """
@@ -74,6 +78,29 @@ def jnd_probe(imgs: torch.Tensor, pred: torch.Tensor, scaling_w, mode: str,
 
 
 jnd_probe.launches = 0
+
+SPLIT_MODES = ("copy", "sums", "full_nosqrt")
+
+
+def k5_split(imgs: torch.Tensor, pred: torch.Tensor, scaling_w, mode: str) -> torch.Tensor:
+    """K5's kernel with its heat switched (`mode` as K7's: copy, sums or
+    full_nosqrt, K5 itself) at K5's geometry, on the card: its plain
+    version is jnd_probe_plain's. Counts on no wrapper: a tool, not a
+    path."""
+    if mode not in SPLIT_MODES:
+        raise ValueError(f"k5_split takes mode in {SPLIT_MODES}, got {mode!r}")
+    f, h, w = fb._check_frames("k5_split", imgs, (torch.uint8, torch.float32))
+    fb._check_plane("k5_split", pred, (f, h, w), (torch.float32,), imgs.device)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"k5_split runs on the card, got {imgs.device}")
+    out = torch.empty((f, h, w), dtype=torch.float32, device=imgs.device)
+    u8 = imgs.dtype == torch.uint8
+    geo = fb.k5_geometry(h, w, u8, ptrs=(imgs.data_ptr(), pred.data_ptr(), out.data_ptr()))
+    _lib.check(_lib.library().vs_jnd_delta_split(
+        imgs.data_ptr(), int(u8), pred.data_ptr(), out.data_ptr(), f, h, w, geo["rows"],
+        geo["band"], int(geo["vec_frames"]), int(geo["vec_planes"]), *fb._lum_weights(imgs),
+        float(scaling_w), MODES.index(mode), _lib.stream_ptr(imgs)), "vs_jnd_delta_split")
+    return out
 
 
 def probe_inputs(frames: int, h: int, w: int, dtype: torch.dtype, device,
