@@ -25,21 +25,34 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   5. the planar slice: videoseal_1.0 at random init (seed 0) in bf16,
      embed_detect_planar over 128 planar 1080p frames in the scored and the
      card-default modes; checks shapes, launch counts, the scaling_w=0
-     identity, CPU-vs-card agreement on 4 frames; times it;
-     unet (after 5): the serving UNet (videoseal_tpu_torch/kernels/
-     unet_fused.py, no kernel): with_dtype("bfloat16") routes the embedder
-     there (its config and a counter of the folded forward's calls, apart
-     from the kernels' counts); for videoseal_1.0's, chunkyseal's and
-     videoseal_0.0's embedders (BatchNorm statistics and rms gains drawn)
-     on one chunk of 32 key frames at 256x256, the folded forward against
-     the module on the card in float32 with TF32 off, the card's bf16 folded
-     forward against the CPU's on a frame; times both routes per chunk;
+     identity, CPU-vs-card agreement on 4 frames; times it, and the scored
+     mode with the UNet's s2d and folded routes in turns, at both cuDNN TF32 settings;
+     unet (after 5): the serving UNet's two routes (videoseal_tpu_torch/
+     kernels/unet_fused.py, the folded forward, and kernels/unet_s2d.py, the
+     space-to-depth one; no kernel): with_dtype("bfloat16") on the card
+     serves the s2d route, as ROADMAP §3.52 decided (its config
+     and counters of each route's calls, apart from the kernels' counts);
+     for the four cards' embedders (BatchNorm statistics and rms gains
+     drawn) on one chunk of 32 key frames at 256x256, the folded forward
+     against the module and the s2d forward against the folded one on the
+     card in float32 with TF32 off, each route's bf16 forward on the card
+     against the CPU's on a frame; times both routes per chunk in turns at
+     PyTorch's TF32 defaults (phase K2 leaves cuDNN's off after it);
+     where the card serves the s2d route, every phase that holds a bf16
+     card slice against the CPU serves it on the CPU too (cpu_route);
      tools (after unet): the JAX package's timing tools in the port:
      evals/unet_bench.main() (the stages unet_apply_fused chains) and
      evals/stage_bench.main(["--decompose"]) at their defaults (128 u8
-     1080p frames: K2 1,296, K4 9, K5 18), each K2, K4 and K5 launch's
-     first call per shape held against its plain version; each stage's ms
-     printed, no time asserted;
+     1080p frames, the s2d UNet at its five schedules: K2 1,296, K4 9, K5
+     18), each K2, K4 and K5 launch's first call per shape held against
+     its plain version; each stage's ms printed, no time asserted;
+     layouts (after tools): the JAX package's layout tools in the port at
+     2 timed calls a row: unet_bench --s2d and --s2d_pieces, conv_probe,
+     resize_probe, dw_mxu_probe (K8 54), planar_probe --lowres_stages (K1
+     at each rs of its sweep, bit for bit the default's), r4_probe (K1,
+     K2 and K3 over 128 frames); each K1, K2, K3 and K8 launch's first call
+     per shape and settings held against its plain version; rows printed,
+     no time asserted;
   6. K4, K5, K6 (full-resolution JND on NHWC frames) against their plain
      versions at 1080p, F=4 (K4's delta and blend modes and K5 on u8 and
      f32 frames, K6 with 1- and 3-channel predictions in f32 and bf16),
@@ -55,7 +68,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      of 128 u8 1080p frames as a video, detect and extract_message of the
      result, embed of 32 float frames as images; checks shapes, launch
      counts, the scaling_w=0 identity, CPU-vs-card agreement on 4 frames;
-     times embed+detect;
+     times embed+detect, and embed+detect of 32 frames in the
+     lowres mode with the UNet's s2d and folded routes in turns;
   8. chunkyseal at full width, random init in bf16: embed of 8 float 1080p
      frames as images (the K6 path; the K6 launch, shapes, the scaling_w=0
      identity), then detect and extract_message of the result (K2 at the
@@ -253,6 +267,7 @@ NHWC embed launches nothing after K4.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -309,18 +324,21 @@ CHUNKY_LOGIT_ATOL = 5e-2
 # bf16) drifts by bf16 ulps on the two devices' conv algorithms: measured
 # 5.27e-2 at most (13 ulps) on 2 frames; the mean stays within a few ulps
 V0_F32_ATOL, V0_PRED_ATOL, V0_PRED_MEAN, V0_LOGIT_ATOL = 1e-4, 0.1, 1e-2, 5e-2
-# the unet phase: videoseal_1.0's, chunkyseal's and videoseal_0.0's
-# embedders on one chunk of key frames at their processing size; the folded
-# forward against the module in float32 (TF32 off) within UNET_F32_RTOL of
-# the output's largest (the JAX package's parity bound); the card's bf16
-# folded forward against the CPU's on UNET_CPU_FRAMES frames under the
-# slice's noise rule (SLICE_NOISE_FACTOR times the CPU's bf16 against its
-# float32), chunkyseal's at 128 px (its 2,560-channel bottleneck costs ~2
-# TFLOP a frame at 256 px)
-UNET_CARDS, UNET_FRAMES, UNET_CPU_FRAMES = ("videoseal_1.0", "chunkyseal", "videoseal_0.0"), 32, 1
+# the unet phase: the four cards' embedders on one chunk of key frames at
+# their processing size; the folded forward against the module and the
+# space-to-depth forward against the folded one in float32 (TF32 off) within
+# UNET_F32_RTOL of the output's largest (the JAX package's parity bound);
+# each route's bf16 forward on the card against the CPU's on UNET_CPU_FRAMES
+# frames under the slice's noise rule (SLICE_NOISE_FACTOR times the CPU's
+# bf16 against its float32), chunkyseal's at 128 px (its 2,560-channel
+# bottleneck costs ~2 TFLOP a frame at 256 px); each route timed in turns
+# over UNET_REPS calls a turn
+UNET_CARDS = ("videoseal_1.0", "pixelseal", "chunkyseal", "videoseal_0.0")
+UNET_FRAMES, UNET_CPU_FRAMES, UNET_REPS, UNET_PROFILE_KEYS = 32, 1, 5, (32, 8)
 UNET_F32_RTOL, UNET_CPU_SIZE = 2e-4, {"chunkyseal": 128}
-# the tools phase: calls a stage after the warm-up (the tools' --k default)
-TOOLS_K = 8
+# the tools phase: calls a stage after the warm-up (the tools' --k default);
+# the layouts phase's, reduced
+TOOLS_K, LAYOUT_K = 8, 2
 # grouped route, card vs CPU on 4 frames: the same bf16 forward with conv and
 # matmul sums in another order; measured 3.9e-3 on logits up to ~0.7. On the
 # card the grouped route equals the single one: K3 runs K2's parts on K2's
@@ -853,7 +871,7 @@ def phase_slice(dev, smi: str) -> dict:
     log("[slice] scaling_w=0 leaves the frames unchanged in both modes")
 
     cpu32 = vt.load("videoseal_1.0", device="cpu", seed=0)
-    cpu = cpu32.with_dtype("bfloat16")
+    cpu = cpu_route(cpu32.with_dtype("bfloat16"), model)
     small = imgs[:4]
     for m, kw in modes.items():
         with tf32_off():
@@ -900,7 +918,31 @@ def phase_slice(dev, smi: str) -> dict:
         log(f"[slice] {m}: {ms:.2f} ms per {F_SLICE} frames at 1080p = {fps:.1f} fps "
             f"({smi})")
         rec[m] = {"ms": ms, "fps": fps}
+    rec["route_turns"] = route_turns(
+        "slice", model, lambda: model.embed_detect_planar(imgs, H, W, msgs=msgs,
+                                                          **modes["scored"]), F_SLICE, smi)
     return rec
+
+
+def route_turns(tag: str, model, call, frames: int, smi: str) -> dict:
+    """fps of `call` with `model`'s UNet on the s2d and the folded route in
+    turns (s2d, folded, folded, s2d), each turn `cuda_ms` of UNET_REPS calls
+    after a warm-up, at PyTorch's TF32 defaults and then with cuDNN's TF32
+    off (keys suffixed `_tf32_off`)."""
+    import dataclasses
+    cfg = model.cfg
+    fps = {"s2d": [], "fused": [], "s2d_tf32_off": [], "fused_tf32_off": []}
+    try:
+        for cudnn, sfx in ((True, ""), (False, "_tf32_off")):
+            with tf32_off(cudnn=cudnn):
+                for route in ("s2d", "fused", "fused", "s2d"):
+                    model.cfg = dataclasses.replace(cfg, s2d_embedder=route == "s2d")
+                    fps[route + sfx].append(frames / cuda_ms(call, UNET_REPS) * 1000)
+    finally:
+        model.cfg = cfg
+    log(f"[{tag}] the UNet's routes in turns, fps: " + ", ".join(
+        f"{k} {[round(f, 1) for f in v]}" for k, v in fps.items()) + f" ({smi})")
+    return fps
 
 
 def _unet_embedder(name: str, dev):
@@ -930,78 +972,139 @@ def _unet_embedder(name: str, dev):
     return spec.module.eval(), int(args["nbits"]), spec.yuv
 
 
+def _route_calls(model, frames) -> dict:
+    """Calls of the folded and the space-to-depth UNet forwards in one
+    embed of `frames` as a video by `model`."""
+    from videoseal_tpu_torch.models import videoseal as vsm
+    calls = {"fused": 0, "s2d": 0}
+    real = {"fused": vsm.unet_apply_fused, "s2d": vsm.unet_apply_s2d}
+
+    def counted(route):
+        def fn(*a):
+            calls[route] += 1
+            return real[route](*a)
+        return fn
+    vsm.unet_apply_fused, vsm.unet_apply_s2d = counted("fused"), counted("s2d")
+    try:
+        model.embed(frames, is_video=True)
+    finally:
+        vsm.unet_apply_fused, vsm.unet_apply_s2d = real["fused"], real["s2d"]
+    return calls
+
+
 def phase_unet(dev, smi: str) -> dict:
-    """The serving UNet (kernels/unet_fused.py, no kernel of the TPU's):
-    a with_dtype("bfloat16") model routes its embedder there; for
-    videoseal_1.0's, chunkyseal's and videoseal_0.0's embedders, one chunk
-    of UNET_FRAMES key frames at 256x256, the folded forward against the
-    module on the card in float32 with TF32 off, the card's bf16 folded
-    forward against the CPU's, and both routes timed in bf16."""
+    """The serving UNet's two routes (kernels/unet_fused.py and
+    kernels/unet_s2d.py, no kernel of the TPU's): a with_dtype("bfloat16")
+    model on the card routes its embedder to the one that
+    ROADMAP §3.52 decided, the s2d one; for each of UNET_CARDS'
+    embedders, one chunk of UNET_FRAMES key frames at 256x256, the folded
+    forward against the module and the s2d forward against the folded one
+    on the card in float32 with TF32 off (the lane-packed folded forward
+    too), each route's bf16 forward on the card against the CPU's, and the
+    routes timed in bf16 in turns at PyTorch's TF32 defaults (the
+    lane-packed one too) and with cuDNN's TF32 off."""
     import videoseal_tpu_torch as vt
     from videoseal_tpu_torch.kernels.unet_fused import unet_apply_fused
-    from videoseal_tpu_torch.models import videoseal as vsm
+    from videoseal_tpu_torch.kernels.unet_s2d import schedule_for, unet_apply_s2d
     from videoseal_tpu_torch.ops.resize import resize_bilinear
 
     m16 = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
-    calls = []
-    real = vsm.unet_apply_fused
-    vsm.unet_apply_fused = lambda *a: calls.append(1) or real(*a)
-    try:
-        g = torch.Generator(device=dev).manual_seed(20)
-        frames = torch.randint(0, 256, (8, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
-        m16.embed(frames, is_video=True)
-    finally:
-        vsm.unet_apply_fused = real
-    log(f"[unet] videoseal_1.0.with_dtype('bfloat16'): cfg.fused_embedder "
-        f"{m16.cfg.fused_embedder}, folded forwards in one embed of 8 frames {len(calls)}")
-    if not m16.cfg.fused_embedder or len(calls) != 1:
-        raise AssertionError("with_dtype('bfloat16') does not serve the UNet's folded forward")
+    g = torch.Generator(device=dev).manual_seed(20)
+    frames = torch.randint(0, 256, (8, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
+    calls = _route_calls(m16, frames)
+    want = "s2d"       # ROADMAP §3.52: JAX's rule, s2d faster on the card
+    log(f"[unet] videoseal_1.0.with_dtype('bfloat16') on the card: cfg.fused_embedder "
+        f"{m16.cfg.fused_embedder}, cfg.s2d_embedder {m16.cfg.s2d_embedder}; forwards in one "
+        f"embed of 8 frames: {calls} (the route ROADMAP §3.52 names: {want})")
+    if (not m16.cfg.fused_embedder or not m16.cfg.s2d_embedder
+            or calls != {"fused": 0, "s2d": 0} | {want: 1}):
+        raise AssertionError(f"with_dtype('bfloat16') on the card does not serve the {want} route")
     del m16, frames
-    rec = {"route_calls": len(calls)}
+    rec = {"route_calls": calls, "route": want}
+    routes = {"fused": unet_apply_fused, "s2d": unet_apply_s2d,
+              "lane_pack": functools.partial(unet_apply_fused, lane_pack=True)}
     for name in UNET_CARDS:
         t0 = time.perf_counter()
         emb, nbits, yuv = _unet_embedder(name, dev)
         g = torch.Generator(device=dev).manual_seed(21)
         x = torch.rand((UNET_FRAMES, 256, 256, 1 if yuv else 3), generator=g, device=dev)
         msgs = torch.randint(0, 2, (UNET_FRAMES, nbits), generator=g, device=dev)
+        sch = schedule_for(emb.unet, 256)
         with torch.no_grad():
             with tf32_off():
                 fused32 = unet_apply_fused(emb.unet, x, msgs)
                 ref32 = emb(x, msgs)
-            err = float((fused32 - ref32).abs().max())
-            top = float(ref32.abs().max())
-            del fused32, ref32
-            e16 = emb.to(torch.bfloat16)       # folds anew in bf16 at its next call
+                err = float((fused32 - ref32).abs().max())
+                top = float(ref32.abs().max())
+                del ref32
+                s2d_err = float((unet_apply_s2d(emb.unet, x, msgs) - fused32).abs().max())
+                lane_err = float((routes["lane_pack"](emb.unet, x, msgs) - fused32).abs().max())
+            del fused32
+            e16 = emb.to(torch.bfloat16)       # folds and packs anew in bf16 at its next call
             x16 = x.to(torch.bfloat16)
-            fused_ms = cuda_ms(lambda: unet_apply_fused(e16.unet, x16, msgs))
-            module_ms = cuda_ms(lambda: e16(x16, msgs))
-            # the CPU's bf16 and float32 folded forwards on a few frames:
-            # its bf16 noise bounds the card's distance from it
+            # in turns on the one card at PyTorch's TF32 defaults: folded, s2d,
+            # the folded route with lane-packed convs, and back; then folded and
+            # s2d again with cuDNN's TF32 off, the state phase K2 leaves (the s2d
+            # route's border strips are float32 convs: unet_s2d._strip_conv)
+            times = {"fused": [], "s2d": [], "lane_pack": [], "fused_tf32_off": [],
+                     "s2d_tf32_off": []}
+            with tf32_off(cudnn=True):
+                for r in ("fused", "s2d", "lane_pack", "lane_pack", "s2d", "fused"):
+                    times[r].append(cuda_ms(lambda: routes[r](e16.unet, x16, msgs), UNET_REPS))
+                module_ms = cuda_ms(lambda: e16(x16, msgs))
+            with tf32_off():
+                for r in ("fused", "s2d", "s2d", "fused"):
+                    times[f"{r}_tf32_off"].append(
+                        cuda_ms(lambda: routes[r](e16.unet, x16, msgs), UNET_REPS))
+            if name == UNET_CARDS[0]:
+                # each route's device time against its wall, at a chunk's keys
+                # and at the NHWC scorer's 8: the s2d route launches less
+                # device work and issues more host operations (after the
+                # turns, so that no timed turn follows a trace)
+                with tf32_off(cudnn=True):
+                    r_prof = profile({f"{rt}_{k}keys": (lambda fn=routes[rt], k=k: fn(
+                        e16.unet, x16[:k], msgs[:k])) for rt in ("fused", "s2d")
+                        for k in UNET_PROFILE_KEYS})
+            # the CPU's bf16 and float32 forwards of each route on a few
+            # frames: its bf16 noise bounds the card's distance from it
             s = UNET_CPU_SIZE.get(name, 256)
             xc = resize_bilinear(x[:UNET_CPU_FRAMES], s, s).to(torch.bfloat16)
             mc = msgs[:UNET_CPU_FRAMES]
-            card16 = unet_apply_fused(e16.unet, xc, mc).float().cpu()
             c16 = cpu_copy(e16)
-            cpu16 = unet_apply_fused(c16.unet, xc.cpu(), mc.cpu()).float()
-            cpu32 = unet_apply_fused(c16.float().unet, xc.cpu().float(), mc.cpu()).float()
-            del c16, e16, emb
-        d, floor = (card16 - cpu16).abs(), (cpu16 - cpu32).abs()
-        lim_max = SLICE_NOISE_FACTOR * float(floor.max())
-        lim_mean = SLICE_NOISE_FACTOR * float(floor.mean())
-        r = {"f32_max_abs": err, "f32_out_max": top, "bf16_max": float(d.max()),
-             "bf16_mean": float(d.mean()), "bf16_max_limit": lim_max,
-             "bf16_mean_limit": lim_mean, "fused_ms": fused_ms, "module_ms": module_ms,
-             "cpu_size": s, "s": time.perf_counter() - t0}
-        log(f"[unet] {name}: {UNET_FRAMES} frames at 256x256, float32 (TF32 off) folded vs "
-            f"module on the card: max abs diff {err:.3e} (limit {UNET_F32_RTOL} x {top:.3f}); "
-            f"bf16 card vs CPU on {UNET_CPU_FRAMES} at {s}x{s}: max {r['bf16_max']:.3e} "
-            f"(limit {lim_max:.3e}), mean {r['bf16_mean']:.3e} (limit {lim_mean:.3e}); bf16 "
-            f"per chunk: folded {fused_ms:.3f} ms, module {module_ms:.3f} ms ({smi}); "
-            f"{r['s']:.1f} s")
-        if err > UNET_F32_RTOL * top:
-            raise AssertionError(f"{name}: the folded UNet disagrees with the module in float32")
-        if r["bf16_max"] > lim_max or r["bf16_mean"] > lim_mean:
-            raise AssertionError(f"{name}: the card's bf16 folded UNet disagrees with the CPU's")
+            c32 = cpu_copy(c16).float()
+            cmp = {}
+            for r in ("fused", "s2d"):
+                fn = routes[r]
+                card16 = fn(e16.unet, xc, mc).float().cpu()
+                cpu16 = fn(c16.unet, xc.cpu(), mc.cpu()).float()
+                cpu32 = fn(c32.unet, xc.cpu().float(), mc.cpu()).float()
+                d, floor = (card16 - cpu16).abs(), (cpu16 - cpu32).abs()
+                cmp[r] = {"bf16_max": float(d.max()), "bf16_mean": float(d.mean()),
+                          "bf16_max_limit": SLICE_NOISE_FACTOR * float(floor.max()),
+                          "bf16_mean_limit": SLICE_NOISE_FACTOR * float(floor.mean())}
+            del c16, c32, e16, emb
+        r = {"schedule": sch, "f32_max_abs": err, "f32_out_max": top, "s2d_f32_max_abs": s2d_err,
+             "lane_pack_f32_max_abs": lane_err, "cpu": cmp,
+             **{f"{k}_ms": v for k, v in times.items()},
+             "module_ms": module_ms, "cpu_size": s, "s": time.perf_counter() - t0}
+        if name == UNET_CARDS[0]:
+            r["profile"] = {k: {f: v[f] for f in ("wall_ms", "kernel_ms")}
+                            for k, v in r_prof.items()}
+        log(f"[unet] {name}: {UNET_FRAMES} frames at 256x256, float32 (TF32 off) on the card: "
+            f"folded vs module max abs diff {err:.3e}, s2d {sch} vs folded {s2d_err:.3e}, "
+            f"lane-packed vs folded {lane_err:.3e} "
+            f"(limit {UNET_F32_RTOL} x {top:.3f}); bf16 card vs CPU on {UNET_CPU_FRAMES} at "
+            f"{s}x{s}: " + "; ".join(
+                f"{k} max {c['bf16_max']:.3e} (limit {c['bf16_max_limit']:.3e}), mean "
+                f"{c['bf16_mean']:.3e} (limit {c['bf16_mean_limit']:.3e})" for k, c in cmp.items())
+            + "; bf16 ms per chunk in turns: " + ", ".join(f"{k} {v}" for k, v in times.items())
+            + f", module {module_ms:.3f} ms ({smi}); {r['s']:.1f} s")
+        if max(err, s2d_err, lane_err) > UNET_F32_RTOL * top:
+            raise AssertionError(f"{name}: the folded UNet disagrees with the module, or the "
+                                 f"s2d or lane-packed UNet with the folded one, in float32")
+        for k, c in cmp.items():
+            if c["bf16_max"] > c["bf16_max_limit"] or c["bf16_mean"] > c["bf16_mean_limit"]:
+                raise AssertionError(f"{name}: the card's bf16 {k} UNet disagrees with the CPU's")
         rec[name] = r
         del x, x16, msgs
         torch.cuda.empty_cache()
@@ -1011,10 +1114,12 @@ def phase_unet(dev, smi: str) -> dict:
 def phase_tools(dev, smi: str) -> dict:
     """The JAX package's two timing tools in the port: unet_bench.main (the
     stages that unet_apply_fused chains, which phase `unet` holds) and
-    stage_bench.main --decompose at their defaults (128 u8 1080p frames),
+    stage_bench.main --decompose at their defaults (128 u8 1080p frames; the
+    folded and the space-to-depth UNet at its five schedules on 32 keys),
     each K2, K4 and K5 launch of the latter held against its plain version,
     the counts of both runs, and each stage's ms printed beside the card's
-    name and power limit. No time is asserted."""
+    name and power limit. No time is asserted; a stage's error row fails
+    the phase."""
     from videoseal_tpu_torch.evals import stage_bench, unet_bench
 
     t0 = time.perf_counter()
@@ -1038,19 +1143,87 @@ def phase_tools(dev, smi: str) -> dict:
     names = [r["stage"] for r in ub["stages"]]
     if names != ["encoder", "bottleneck", "decoder"]:
         raise AssertionError(f"unet_bench printed the stages {names}")
-    want = ["unet_fused(keys)", "extractor(frames@256)", "resize_down(keys)",
+    want = ["unet_fused(keys)",
+            *(f"unet_s2d{'inferred' if sch is None else sch}(keys)"
+              for sch in stage_bench.S2D_SCHEDULES),
+            "extractor(frames@256)", "resize_down(keys)",
             "resize_up(preds)", "fused_jnd_delta+blend(fullres)", "full_embed_extract",
             "fused_jnd_delta(only)", "blend_elementwise(only)", "hbm_copy_u8(frames)",
             "hbm_copy_f32(preds_plane)"]
+    failed = [r for r in sb["stages"] if "error" in r]
+    if failed:
+        # videoseal_1.0 takes all five schedules: an error row is a fault
+        raise AssertionError(f"stage_bench stages failed: {failed}")
     names = [r["stage"] for r in sb["stages"]]
     if names != want:
         raise AssertionError(f"stage_bench printed the stages {names}")
     for tool, r, unit in (("unet_bench", ub, "per_key_us"), ("stage_bench", sb, "per_frame_us")):
         for row in r["stages"]:
-            log(f"[tools] {tool} {row['stage']}: {row['ms']:.3f} ms, {row[unit]:.2f} "
-                f"{unit} ({smi})")
+            log(f"[tools] {tool} {row['stage']}: {row['ms']:.3f} ms, "
+                f"{row[unit]:.2f} {unit} ({smi})")
     rec.update(unet_bench=ub["stages"], stage_bench=sb["stages"], s=time.perf_counter() - t0)
     log(f"[tools] {rec['s']:.1f} s")
+    return rec
+
+
+def phase_layouts(dev, smi: str) -> dict:
+    """The JAX package's layout tools in the port, at reduced depth
+    (LAYOUT_K timed calls after a warm-up): unet_bench's --s2d and
+    --s2d_pieces modes (videoseal_1.0's s2d UNet, stage by stage and level by
+    level; no kernel), then the five probes at their default shapes:
+    conv_probe (cuDNN and cuBLAS), resize_probe (cuBLAS, cuBLASLt's int8
+    product), dw_mxu_probe (its "vpu" form is K8), planar_probe with
+    --lowres_stages (K1 at each rs of its sweep, held bit for bit against
+    the default rs inside the probe), r4_probe (K1; K2 and K3 through the
+    grouped route). The counts of the run, then each K1, K2, K3 and K8
+    launch's first call per shape held against its plain version; each
+    row printed beside the card's name and power limit. No time is
+    asserted."""
+    from videoseal_tpu_torch.evals import (dw_mxu_probe, planar_probe, r4_probe, resize_probe,
+                                           unet_bench)
+    from videoseal_tpu_torch.kernels import conv_probe
+    from videoseal_tpu_torch.kernels.convnext_fused import block_groups
+
+    t0 = time.perf_counter()
+    k = ["--k", str(LAYOUT_K)]
+    calls = LAYOUT_K + 1
+    rec = {}
+    reset_counts()
+    cap = _Capture(extra=((planar_probe, "fused_jnd_blend_planar", "K1"),
+                          (r4_probe, "fused_jnd_blend_planar", "K1"),
+                          (dw_mxu_probe, "convnext_probe", "K8")))
+    with cap:
+        rec["unet_bench_s2d"] = unet_bench.main(["--s2d", "1"] + k)["stages"]
+        rec["unet_bench_s2d_pieces"] = unet_bench.main(["--s2d_pieces", "1"] + k)["stages"]
+        rec["conv_probe"] = conv_probe.main(k)
+        rec["resize_probe"] = resize_probe.main(k)
+        rec["dw_mxu_probe"] = dw_mxu_probe.main(k)
+        rec["planar_probe"] = planar_probe.main(["--lowres_stages"] + k)
+        rec["r4_probe"] = r4_probe.main(k)
+    # K1: planar_probe's reference, each taken rs's check and timing, the
+    # lowres blend; r4_probe's blend, blend+detect and its output for
+    # resize_det. K2/K3: r4_probe's two extractor routes over F_SLICE frames
+    # in chunks of 32. K8: dw_mxu_probe's vpu form, `depth` launches a call
+    taken = sum("ms" in r for r in rec["planar_probe"] if "rs" in r)
+    chunks = F_SLICE // 32
+    groups = [g for d in DEPTHS for g in block_groups(d, 4)]
+    rec["launches"] = check_counts("layouts", {
+        "K1": 1 + taken * (1 + calls) + calls + 2 * calls + 1,
+        "K2": calls * chunks * (groups.count(1) + sum(DEPTHS)),
+        "K3": calls * chunks * sum(g > 1 for g in groups),
+        "K8": calls * sum(d for _, _, d in dw_mxu_probe.STAGES)})
+    rec["held"] = hold_captured("layouts", cap.calls)
+    del cap
+    torch.cuda.empty_cache()
+    if [r["form"] for r in rec["dw_mxu_probe"]] != ["vpu", "mxu_band", "mxu_band_t",
+                                                    "mxu_diag"] * 4:
+        raise AssertionError("dw_mxu_probe printed other forms")
+    for tool in ("unet_bench_s2d", "unet_bench_s2d_pieces", "conv_probe", "resize_probe",
+                 "dw_mxu_probe", "planar_probe", "r4_probe"):
+        for row in rec[tool]:
+            log(f"[layouts] {tool} {json.dumps(row)} ({smi})")
+    rec["s"] = time.perf_counter() - t0
+    log(f"[layouts] {rec['s']:.1f} s")
     return rec
 
 
@@ -1303,7 +1476,7 @@ def phase_nhwc(dev, smi: str) -> dict:
 
     model32 = vt.load("videoseal_1.0", device=dev, seed=0)
     cpu32 = vt.load("videoseal_1.0", device="cpu", seed=0)
-    cpu = cpu32.with_dtype("bfloat16")
+    cpu = cpu_route(cpu32.with_dtype("bfloat16"), model)
     with tf32_off():
         g32 = model32.embed(frames[:4], msgs=msgs, is_video=True)["imgs_w"]
         l32 = model32.detect(g32)["preds"].cpu()
@@ -1353,6 +1526,11 @@ def phase_nhwc(dev, smi: str) -> dict:
                        ("jnd_up_kernel",))
         for m in ("nhwc_embed_u8", "nhwc_embed_f32"):
             check_launches(m, rec["profile"][m]["order"], after="jnd_up_kernel")
+    few = frames[:BENCH_NHWC_FRAMES]     # the NHWC scorer's frames, lowres mode
+    rec["route_turns"] = route_turns(
+        "nhwc", model, lambda: model.detect(model.embed(
+            few, msgs=msgs, is_video=True, lowres_attenuation=True)["imgs_w"]),
+        BENCH_NHWC_FRAMES, smi)
     ms = cuda_ms(embed_detect)
     ems = cuda_ms(lambda: model.embed(frames, msgs=msgs, is_video=True))
     fps = F_SLICE / ms * 1000
@@ -1360,6 +1538,16 @@ def phase_nhwc(dev, smi: str) -> dict:
         f"(embed alone {ems:.2f} ms) ({smi})")
     rec.update(ms=ms, fps=fps, embed_ms=ems)
     return rec
+
+
+def cpu_route(cpu, card):
+    """`cpu`, a with_dtype model on the CPU (where the rule serves the
+    folded UNet), serving the card model's UNet route (the space-to-depth
+    one by s2d_embedder_rule), so that the two run one function on
+    their two devices."""
+    import dataclasses
+    cpu.cfg = dataclasses.replace(cpu.cfg, s2d_embedder=card.cfg.s2d_embedder)
+    return cpu
 
 
 def cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
@@ -1370,6 +1558,7 @@ def cpu_copy(module: torch.nn.Module) -> torch.nn.Module:
     for m in out.modules():
         m.__dict__.pop("_kernel_params", None)
         m.__dict__.pop("_fused_params", None)
+        m.__dict__.pop("_s2d_params", None)
     return out
 
 
@@ -1475,7 +1664,7 @@ def phase_pixelseal(dev, smi: str) -> dict:
     log(f"[pixelseal] scaling_w=0: u8 video unchanged {same}, planar unchanged {same_p}")
     if not (same and same_p):
         raise AssertionError("scaling_w=0 is not the identity on pixelseal's paths")
-    cpu = vt.load("pixelseal", device="cpu", seed=0).with_dtype("bfloat16")
+    cpu = cpu_route(vt.load("pixelseal", device="cpu", seed=0).with_dtype("bfloat16"), model)
     g2 = model.embed(frames[:2], msgs=msgs, is_video=True)["imgs_w"]
     c2 = cpu.embed(frames[:2].cpu(), msgs=msgs.cpu(), is_video=True)["imgs_w"]
     d = (g2.cpu().int() - c2.int()).abs()
@@ -1543,7 +1732,7 @@ def phase_v0(dev, smi: str) -> dict:
                 .abs().max())
     l32 = float((gpu32.detect(wm[:2])["preds"].cpu() - cpu32.detect(wm[:2].cpu())["preds"])
                 .abs().max())
-    cpu = cpu32.with_dtype("bfloat16")
+    cpu = cpu_route(cpu32.with_dtype("bfloat16"), model)
     del cpu32, gpu32
     gp = model.embed(frames[:2], msgs=msgs, is_video=True)["preds_w"]
     cp = cpu.embed(frames[:2].cpu(), msgs=msgs.cpu(), is_video=True)["preds_w"]
@@ -1669,21 +1858,17 @@ def phase_k3(dev) -> dict:
 
 
 def phase_grouped(dev, smi: str) -> dict:
-    """The extractor's grouped route at full width, as r4_probe's extract
+    """The extractor's grouped route at full width, r4_probe's extract
     stage: convnext_apply_fused(max_block_group=4) plus the pixel decoder."""
     import videoseal_tpu_torch as vt
-    from videoseal_tpu_torch.kernels.convnext_fused import block_groups, convnext_apply_fused
-    from videoseal_tpu_torch.models.videoseal import _chunked_apply
+    from videoseal_tpu_torch.evals import r4_probe
+    from videoseal_tpu_torch.kernels.convnext_fused import block_groups
 
     model = vt.load("videoseal_1.0", device=dev, seed=0).with_dtype("bfloat16")
     s, cs = model.cfg.img_size, model.cfg.chunk_size
     g = torch.Generator(device=dev).manual_seed(12)
     frames = torch.rand((F_SLICE, s, s, 3), generator=g, device=dev).to(torch.bfloat16)
-
-    def extract(ext, x, mbg):
-        with torch.no_grad():
-            return _chunked_apply(lambda b: ext.pixel_decoder(convnext_apply_fused(
-                ext.convnext, b[0] * 2 - 1, max_block_group=mbg)).float(), (x,), cs)
+    extract = lambda ext, x, mbg: r4_probe.extract(ext, x, mbg, cs)
 
     groups = [k for st in model.extractor.convnext.stages for k in block_groups(len(st), 4)]
     chunks = math.ceil(F_SLICE / cs)
@@ -3043,9 +3228,9 @@ class _Capture:
     """Wraps the kernel wrappers where the pipeline calls them (K1, K4 and K6
     in models/videoseal.py, K2 and K3 in kernels/convnext_fused.py, and the
     (module, name, kernel) of `extra`) for one run and keeps each wrapper's
-    first call per input shape, so that its kernel can be held against its
-    plain version on the inputs the path gave it, after the run's counts
-    are read."""
+    first call per input shapes and keyword settings, so that its kernel can
+    be held against its plain version on the inputs the path gave it, after
+    the run's counts are read."""
 
     def __init__(self, extra: tuple = ()):
         from videoseal_tpu_torch.kernels import convnext_fused as cf
@@ -3059,7 +3244,9 @@ class _Capture:
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self.sites]
         for (mod, name, k), (_, _, fn) in zip(self.sites, self.saved):
             def wrap(*args, fn=fn, k=k, **kw):
-                key = (k, tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)))
+                key = (k, tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)),
+                       tuple(sorted((n, v) for n, v in kw.items()
+                                    if not isinstance(v, torch.Tensor))))
                 self.calls.setdefault(key, (fn, args, kw))
                 return fn(*args, **kw)
             setattr(mod, name, wrap)
@@ -3071,17 +3258,19 @@ class _Capture:
 
 
 def hold_captured(tag: str, calls: dict) -> dict:
-    """Each captured launch against its plain version: K2 and K3 at K2's
-    tolerance, K1's and K4's u8 frames at K1's rule, K5 within DELTA_RTOL
-    of the plain delta's largest, K6 at BLEND_ATOL."""
+    """Each captured launch against its plain version: K2, K3 and K8 at
+    K2's tolerance, K1's and K4's u8 frames at K1's rule, K5 within
+    DELTA_RTOL of the plain delta's largest, K6 at BLEND_ATOL."""
     from videoseal_tpu_torch.kernels import convnext_block as cb
     from videoseal_tpu_torch.kernels import fused_blend as fb
     from videoseal_tpu_torch.kernels import fused_planar as fp
+    from videoseal_tpu_torch.kernels.convnext_probe import convnext_probe_plain
     plain = {"K2": cb.convnext_block_plain, "K3": cb.convnext_blocks_plain,
              "K4": fb.fused_jnd_blend_up_plain, "K1": fp.fused_jnd_blend_planar_plain,
-             "K5": fb.fused_jnd_delta_plain, "K6": fb.fused_jnd_blend_plain}
+             "K5": fb.fused_jnd_delta_plain, "K6": fb.fused_jnd_blend_plain,
+             "K8": convnext_probe_plain}
     worst = {}
-    for (k, shapes), (fn, args, kw) in sorted(calls.items(), key=lambda c: str(c[0])):
+    for (k, shapes, _), (fn, args, kw) in sorted(calls.items(), key=lambda c: str(c[0])):
         a, b = fn(*args, **kw), plain[k](*args, **kw)
         torch.cuda.synchronize()
         if k == "K1" and isinstance(a, tuple):
@@ -3174,7 +3363,7 @@ def _card_vs_cpu(tag: str, model, path: str, frames: torch.Tensor, embed: bool) 
     these frames) times SLICE_NOISE_FACTOR bounds it instead."""
     import videoseal_tpu_torch as vt
     cpu32 = vt.load(path, device="cpu")
-    cpu = cpu32.with_dtype("bfloat16")
+    cpu = cpu_route(cpu32.with_dtype("bfloat16"), model)
     msgs = model.get_random_msg(1)
     rec = {}
     if embed:
@@ -3421,10 +3610,12 @@ class _BaselineDec(torch.nn.Module):
 
 
 @contextlib.contextmanager
-def tf32_off():
-    """cuDNN's and cuBLAS's TF32 off inside, restored after."""
+def tf32_off(cudnn: bool = False):
+    """cuBLAS's TF32 off inside, and cuDNN's unless `cudnn` (True: PyTorch's
+    defaults, which phase K2 leaves off for the phases after it), restored
+    after."""
     old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, False
     try:
         yield
     finally:
@@ -4129,6 +4320,7 @@ def phase_bench(dev, smi: str, slice_fps: float | None) -> dict:
             raise AssertionError(f"bench: scored {scored} fps, phase 5 {slice_fps}")
     torch.cuda.empty_cache()
 
+
     # stage A's first steps: the flags as the recipe gives them, the identity
     # pool taken by its YAML file's name
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stagea_") as tmp:
@@ -4249,6 +4441,7 @@ def main() -> int:
     rec["slice"] = phase_slice(dev, smi)
     rec["unet"] = phase_unet(dev, smi)
     rec["tools"] = phase_tools(dev, smi)
+    rec["layouts"] = phase_layouts(dev, smi)
     rec["jnd"] = phase_jnd(dev, smi)
     rec["nhwc"] = phase_nhwc(dev, smi)
     rec["chunky"] = phase_chunky(dev, smi)
@@ -4270,7 +4463,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
     # each kernel's launches, summed over the paths' runs
-    paths = [rec[p]["launches"] for p in ("slice", "tools", "nhwc", "chunky", "pixelseal", "v0",
+    paths = [rec[p]["launches"] for p in ("slice", "tools", "layouts", "nhwc", "chunky",
+                                            "pixelseal", "v0",
                                             "grouped", "probes", "stream", "evals",
                                             "attacks", "train", "dist", "presets", "last",
                                             "rest", "bench")]

@@ -6,7 +6,8 @@ checkpoint; and the training entry point's --help), the temporal, pixelwise
 and HiDDeN models and the inflation script, the VAE, DVMark and DINO models,
 the TorchScript baselines and WmForger, the audio watermark, the card files
 and the PIL-semantics resize, the package-level exports, the scorer
-(``bench``), the detect-input eval and the two timing tools, and import
+(``bench``), the detect-input eval, the two timing tools, the
+space-to-depth UNet route and the five layout probes, and import
 every other module, without them (and without PIL, and without cv2, which
 the streaming path and the exact codecs import only where they need it). The examples' and notebooks' code
 imports none of jax, yaml, PIL or the JAX package either."""
@@ -248,7 +249,27 @@ rec = unet_bench.main(["--device", "cpu", "--card", card_128, "--keys", "2", "--
 assert [r["stage"] for r in rec["stages"]] == ["encoder", "bottleneck", "decoder"]
 rec = stage_bench.main(["--device", "cpu", "--card", card_128, "--frames", "2", "--height",
                         "64", "--width", "96", "--k", "1"])
-assert rec["device"] == "cpu" and len(rec["stages"]) == 5
+assert rec["device"] == "cpu" and len(rec["stages"]) == 10
+rec = unet_bench.main(["--device", "cpu", "--card", card_128, "--keys", "2", "--k", "1",
+                       "--s2d_pieces", "1"])
+assert rec["schedule"] == (4, 4) and len(rec["stages"]) == 2
+
+# the space-to-depth UNet route and the layout probes
+import dataclasses
+s2d_model = vt.VideoSeal.from_card(tiny_card(img_size=128), device="cpu").with_dtype("bfloat16")
+s2d_model.cfg = dataclasses.replace(s2d_model.cfg, s2d_embedder=True)
+assert s2d_model.embed(frames, is_video=True)["imgs_w"].shape == frames.shape
+from videoseal_tpu_torch.evals import dw_mxu_probe, planar_probe, r4_probe, resize_probe
+from videoseal_tpu_torch.kernels import conv_probe, lane_pack
+assert len(conv_probe.main(["--device", "cpu", "--k", "1", "--batch", "1", "--hdiv", "8"])) == 9
+assert len(resize_probe.main(["--device", "cpu", "--k", "1", "--frames", "1", "--h", "32",
+                              "--w", "48", "--s", "16"])) == 4
+assert len(dw_mxu_probe.main(["--device", "cpu", "--k", "1", "--frames", "1",
+                              "--stages", "3"])) == 4
+assert len(planar_probe.main(["--device", "cpu", "--k", "1", "--frames", "1", "--height", "64",
+                              "--width", "96", "--proc", "64", "--rs", "32"])) == 1
+assert len(r4_probe.main(["--device", "cpu", "--card", card_128, "--k", "1", "--frames", "2",
+                          "--height", "64", "--width", "96"])) == 5
 print("OK")
 """
 

@@ -13,11 +13,16 @@
   LOGIT_ATOL, the resizes as tests/test_torch_ops.py holds them, K5 (JAX's
   Pallas kernel interpreted) at test_torch_fused_blend.py's DELTA_ATOL, u8
   frames at the NHWC embed tests' rule, the copies exactly.
+  The space-to-depth UNet's stages (JAX's ``unet_apply_s2d`` at each of
+  the JAX tool's schedules, truncated to the tiny UNet's two levels as JAX
+  truncates them) at the folded UNet's bound.
 * Both tools' ``main`` with ``--device cpu``: a line naming the device,
-  then one line per stage with the JAX tool's names and keys, and no
-  ``s2d`` stage; without ``--device`` they raise on a machine without a
-  card.
+  then one line per stage with the JAX tool's names and keys (unet_bench's
+  ``--s2d`` and ``--s2d_pieces`` modes after a ``{"schedule"}`` line);
+  without ``--device`` they raise on a machine without a card.
 """
+
+import ast
 
 import json
 import os
@@ -36,6 +41,7 @@ from videoseal_tpu.kernels.unet_fused import _conv as jconv
 from videoseal_tpu.kernels.unet_fused import _resnet_block as jresnet
 from videoseal_tpu.kernels.unet_fused import _upsample as jupsample
 from videoseal_tpu.kernels.unet_fused import unet_apply_fused as jax_unet
+from videoseal_tpu.kernels.unet_s2d import unet_apply_s2d as jax_unet_s2d
 from videoseal_tpu.models.videoseal import detect_pipeline as jax_detect
 from videoseal_tpu.models.videoseal import embed_pipeline as jax_embed
 from videoseal_tpu.modules.common import get_activation
@@ -184,14 +190,19 @@ def _jax_stage(jm, name, a):
     cfg, emb = jm.cfg, jm.embedder_spec.module
     evars = jm.embedder_vars
     u = emb.unet
-    if name == "unet_fused(keys)":
+    if name == "unet_fused(keys)" or name.startswith("unet_s2d"):
         key_msgs = jnp.broadcast_to(a["msgs"], (a["keys"].shape[0], cfg.nbits))
-        return jax_unet(evars["params"], evars.get("batch_stats", {}), a["keys"], key_msgs,
-                        nbits=emb.nbits, hidden_size=emb.hidden_size,
-                        z_channels_mults=tuple(u["z_channels_mults"]),
-                        activation=u.get("activation", "relu"),
-                        normalization=u.get("normalization", "batch"),
-                        num_blocks=u.get("num_blocks", 8), last_tanh=u.get("last_tanh", True))
+        kw = dict(nbits=emb.nbits, hidden_size=emb.hidden_size,
+                  z_channels_mults=tuple(u["z_channels_mults"]),
+                  activation=u.get("activation", "relu"),
+                  normalization=u.get("normalization", "batch"),
+                  num_blocks=u.get("num_blocks", 8), last_tanh=u.get("last_tanh", True))
+        args = (evars["params"], evars.get("batch_stats", {}), a["keys"], key_msgs)
+        if name == "unet_fused(keys)":
+            return jax_unet(*args, **kw)
+        sch = name.removeprefix("unet_s2d").removesuffix("(keys)")
+        return jax_unet_s2d(*args, schedule=None if sch == "inferred" else
+                            ast.literal_eval(sch), **kw)
     if name == "extractor(frames@256)":
         return _jax_detect(jm, a["frames256"])
     if name == "resize_down(keys)":
@@ -219,9 +230,17 @@ def _jax_stage(jm, name, a):
     raise KeyError(name)
 
 
-STAGES = ["unet_fused(keys)", "extractor(frames@256)", "resize_down(keys)", "resize_up(preds)",
-          "fused_jnd_delta+blend(fullres)", "full_embed_extract", "fused_jnd_delta(only)",
-          "blend_elementwise(only)", "hbm_copy_u8(frames)", "hbm_copy_f32(preds_plane)"]
+def _jax_s2d_schedules() -> list:
+    """The schedules of stage_bench.py's unet_s2d loop, read from its source."""
+    with open(os.path.join(ROOT, "videoseal_tpu", "evals", "stage_bench.py")) as f:
+        return ast.literal_eval(re.search(r"for sched in (\[None,[^\]]*\]):", f.read()).group(1))
+
+
+S2D_STAGES = [f"unet_s2d{'inferred' if s is None else s}(keys)" for s in _jax_s2d_schedules()]
+STAGES = ["unet_fused(keys)", *S2D_STAGES, "extractor(frames@256)", "resize_down(keys)",
+          "resize_up(preds)", "fused_jnd_delta+blend(fullres)", "full_embed_extract",
+          "fused_jnd_delta(only)", "blend_elementwise(only)", "hbm_copy_u8(frames)",
+          "hbm_copy_f32(preds_plane)"]
 
 
 @pytest.mark.parametrize("name", STAGES)
@@ -234,7 +253,7 @@ def test_stage_matches_jax(pair, name):
     with torch.no_grad():
         got = fns[name]()
     want = _jax_stage(jm, name, {k: jnp.asarray(v) for k, v in a.items()})
-    if name == "unet_fused(keys)":
+    if name == "unet_fused(keys)" or name.startswith("unet_s2d"):
         _assert_rel(got, want)
     elif name == "extractor(frames@256)":
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_ATOL, rtol=0)
@@ -257,10 +276,11 @@ def test_stage_matches_jax(pair, name):
 # -- the entry points ------------------------------------------------------------------
 
 def _jax_stage_names() -> list:
-    """The names of stage_bench.py's report() calls, in order (the
-    unet_s2d ones are f-strings)."""
+    """The names of stage_bench.py's report() calls, in order, the unet_s2d
+    ones (f-strings in its loop) after unet_fused(keys)."""
     with open(os.path.join(ROOT, "videoseal_tpu", "evals", "stage_bench.py")) as f:
-        return re.findall(r'report\("([^"]+)"', f.read())
+        names = re.findall(r'report\("([^"]+)"', f.read())
+    return names[:1] + S2D_STAGES + names[1:]
 
 
 @pytest.fixture(scope="module")
@@ -283,6 +303,15 @@ def test_mains_print_jax_names_and_keys(card_file, capsys):
     assert [ln["stage"] for ln in lines[1:]] == ["encoder", "bottleneck", "decoder"]
     assert all(set(ln) == {"stage", "ms", "per_key_us"} and ln["ms"] > 0 for ln in lines[1:])
     assert rec["stages"] == lines[1:]
+    for mode, want in (("--s2d", ["s2d_encoder", "s2d_bottleneck", "s2d_decoder"]),
+                       ("--s2d_pieces", ["s2d_up0", "s2d_outc"])):
+        rec = unet_bench.main(["--device", "cpu", "--card", card_file, "--keys", "2", "--k", "1",
+                               "--dtype", "float32", mode, "1"])
+        lines = _lines(capsys.readouterr().out)
+        assert lines[0] == {"device": "cpu"} and lines[1] == {"schedule": [4, 4]}
+        assert [ln["stage"] for ln in lines[2:]] == want and rec["stages"] == lines[2:]
+        keys = {"stage", "ms", "per_key_us"} if mode == "--s2d" else {"stage", "ms"}
+        assert all(set(ln) == keys and ln["ms"] > 0 for ln in lines[2:])
 
     rec = stage_bench.main(["--device", "cpu", "--card", card_file, "--frames", str(F),
                             "--height", str(H), "--width", str(W), "--k", "1", "--decompose"])
@@ -290,12 +319,32 @@ def test_mains_print_jax_names_and_keys(card_file, capsys):
     assert lines[0] == {"device": "cpu"} and rec["stages"] == lines[1:]
     names = [ln["stage"] for ln in lines[1:]]
     assert names == _jax_stage_names() == STAGES
-    assert not any("s2d" in n for n in names)
     assert all(set(ln) == {"stage", "ms", "per_frame_us"} for ln in lines[1:])
     stage_bench.main(["--device", "cpu", "--card", card_file, "--frames", "2",
                       "--height", str(H), "--width", str(W), "--k", "1"])
     names = [ln["stage"] for ln in _lines(capsys.readouterr().out)[1:]]
-    assert names == STAGES[:5]
+    assert names == STAGES[:10]
+
+
+def test_stage_bench_error_line_only_for_a_schedule(card_file, capsys, monkeypatch):
+    """A schedule the UNet cannot take (ValueError) prints JAX's
+    {"stage", "error"} line; any other fault of an s2d stage (a CUDA or
+    cuDNN RuntimeError) propagates."""
+    def fails(ex):
+        def fn():
+            raise ex
+        return fn
+    monkeypatch.setattr(stage_bench, "stages", lambda model, inputs, decompose: [
+        ("unet_s2d(4,)(keys)", fails(ValueError("schedule (4,) has 1 levels")))])
+    args = ["--device", "cpu", "--card", card_file, "--frames", "2",
+            "--height", str(H), "--width", str(W), "--k", "1"]
+    rec = stage_bench.main(args)
+    assert rec["stages"] == [{"stage": "unet_s2d(4,)", "error": "schedule (4,) has 1 levels"}]
+    assert _lines(capsys.readouterr().out)[1:] == rec["stages"]
+    monkeypatch.setattr(stage_bench, "stages", lambda model, inputs, decompose: [
+        ("unet_s2d(4, 2, 1, 1)(keys)", fails(RuntimeError("CUDA out of memory")))])
+    with pytest.raises(RuntimeError, match="out of memory"):
+        stage_bench.main(args)
 
 
 @pytest.mark.parametrize("tool", [unet_bench, stage_bench], ids=lambda t: t.__name__)

@@ -3,7 +3,8 @@
 
 Each stage is the port's counterpart of the JAX tool's call of the same
 name, on inputs drawn on the device from a seed: the folded UNet on the key
-frames, the extractor on 256-px frames, the key frames' downscale and the
+frames, the space-to-depth UNet on them at the schedule it infers and at
+four given ones (``S2D_SCHEDULES``), the extractor on 256-px frames, the key frames' downscale and the
 prediction's upscale, K5 (``fused_jnd_delta``) on u8 frames followed by the
 u8 blend; with ``--decompose`` also the whole embed (full-resolution JND)
 and detect, K5 alone, the blend alone and two copies that calibrate the
@@ -17,8 +18,8 @@ stage, ``{"stage", "ms", "per_frame_us"}``.
 The JAX tool threads each call's result into the next call's input
 (``_perturb``, a chained ``fori_loop``) so that XLA cannot hoist a loop
 body that does not depend on the loop; eager PyTorch runs every call it is
-given, so the calls here are plain. Its ``unet_s2d`` stages time a TPU
-layout (``kernels/unet_s2d.py``) with no counterpart here.
+given, so the calls here are plain. A schedule that the UNet cannot take
+prints ``{"stage", "error"}`` in place of its time, as the JAX tool does.
 """
 
 from __future__ import annotations
@@ -30,12 +31,15 @@ import torch
 
 from ..kernels.fused_blend import fused_jnd_delta
 from ..kernels.unet_fused import unet_apply_fused
+from ..kernels.unet_s2d import unet_apply_s2d
 from ..models.videoseal import _DTYPES, detect_pipeline, embed_pipeline
 from ..ops.resize import resize_bilinear
 from ..utils.timing import cuda_ms, device_info, host_ms
 
 # the JAX tool's watermark strength and image scale
 SCALING_W, SCALING_I = 0.2, 1.0
+# the s2d UNet's schedules the JAX tool times (None: the one it infers)
+S2D_SCHEDULES = (None, (4, 2, 1, 1), (4, 4, 1, 1), (4, 4, 2, 1), (8, 4, 2, 1))
 
 
 def draw_inputs(model, frames: int, height: int, width: int) -> dict:
@@ -68,8 +72,8 @@ def _blend_u8(frames: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 
 def stages(model, inputs: dict, decompose: bool = False) -> list:
-    """(name, fn) of each stage, the JAX tool's names less its ``unet_s2d``
-    ones; fn() computes the stage on `inputs` (``draw_inputs``' keys)."""
+    """(name, fn) of each stage, the JAX tool's names; fn() computes the
+    stage on `inputs` (``draw_inputs``' keys)."""
     cfg, x = model.cfg, inputs
     s, prec = cfg.img_size, cfg.resize_precision
     h, w = x["frames_u8"].shape[1:3]
@@ -81,8 +85,12 @@ def stages(model, inputs: dict, decompose: bool = False) -> list:
                                    lowres_attenuation=False)
         return imgs_w, detect_pipeline(model.extractor, cfg, imgs_w)
 
-    out = [
-        ("unet_fused(keys)", lambda: unet_apply_fused(model.embedder.unet, x["keys"], key_msgs)),
+    unet = model.embedder.unet
+    out = [("unet_fused(keys)", lambda: unet_apply_fused(unet, x["keys"], key_msgs))]
+    out += [(f"unet_s2d{'inferred' if sch is None else sch}(keys)",
+             lambda sch=sch: unet_apply_s2d(unet, x["keys"], key_msgs, sch))
+            for sch in S2D_SCHEDULES]
+    out += [
         ("extractor(frames@256)", lambda: detect_pipeline(model.extractor, cfg, x["frames256"])),
         ("resize_down(keys)", lambda: resize_bilinear(
             x["frames_u8"][::cfg.step_size].float(), s, s, precision=prec)),
@@ -125,8 +133,15 @@ def main(argv=None) -> dict:
     rows = []
     with torch.no_grad():
         for name, fn in stages(model, inputs, args.decompose):
-            ms = timer(fn, args.k)
-            rows.append({"stage": name, "ms": ms, "per_frame_us": ms * 1e3 / args.frames})
+            try:
+                ms = timer(fn, args.k)
+            except ValueError as ex:
+                if not name.startswith("unet_s2d"):
+                    raise
+                # a schedule the UNet cannot take (schedule_for, pack_conv)
+                rows.append({"stage": name.removesuffix("(keys)"), "error": str(ex)[:200]})
+            else:
+                rows.append({"stage": name, "ms": ms, "per_frame_us": ms * 1e3 / args.frames})
             print(json.dumps(rows[-1]), flush=True)
     return {**info, "stages": rows}
 

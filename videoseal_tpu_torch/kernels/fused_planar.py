@@ -220,7 +220,25 @@ def _blend_plain(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres):
     return out, bf(mdh) @ vd
 
 
-def _blend_cuda(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres):
+SMEM_MAX = 232448   # shared memory a block may take on the H100
+
+
+def k1_smem(s: int, h: int, w: int, ds: int, lowres: bool, rs: int = RS) -> int:
+    """Bytes of shared memory a block of K1 takes for s-px predictions of
+    HxW frames at rs output rows a block (csrc/fused_planar.cu's launch):
+    the low-res rows its strip lifts from, the luminance window (full-res
+    JND), the detect row and weights (ds > 0). Runs nothing."""
+    if rs < 1:
+        raise ValueError(f"fused_jnd_blend_planar kernel takes rs >= 1 rows a block, got {rs}")
+    n_tiles, _, _, wq = planar_geometry(h, w)
+    hout = TH * n_tiles
+    nl = _window_rows(s, h, hout, rs)
+    nt = min(256, -(-wq // 512) * 32 if ds else wq // 16)
+    det_floats = 3 * wq + ds * (_tables_np(s, h, w, hout, wq, ds)["dw"][2] + 1) if ds else 0
+    return 4 * (-(-nl * s // 4) * 4 + (0 if lowres else 5 * _window_ld(nt)) + det_floats)
+
+
+def _blend_cuda(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres, rs=RS):
     if imgs_p.dtype != torch.uint8 or not imgs_p.is_contiguous():
         raise ValueError("fused_jnd_blend_planar kernel takes a contiguous u8 buffer")
     f, _, hp, wb = imgs_p.shape
@@ -238,13 +256,11 @@ def _blend_cuda(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres):
     dev = imgs_p.device
     tabs = _tables(s, h, w, hout, wq, ds, dev)
     (ls, lw, lt), (ws, ww, wt) = tabs["lift"], tabs["width"]
-    nl = _window_rows(s, h, hout)
-    nt = min(256, -(-wq // 512) * 32 if ds else wq // 16)   # csrc/fused_planar.cu's launch
-    det_floats = 3 * wq + ds * (tabs["dw"][2] + 1) if ds else 0
-    smem = 4 * (-(-nl * s // 4) * 4 + (0 if lowres else 5 * _window_ld(nt)) + det_floats)
-    if smem > 232448:
+    smem = k1_smem(s, h, w, ds, lowres, rs)
+    if smem > SMEM_MAX:
         raise ValueError(f"fused_jnd_blend_planar kernel: {smem} bytes of shared memory for "
-                         f"s={s}, {h}x{w} exceed the card's 232448")
+                         f"s={s}, {h}x{w}, rs={rs} exceed the card's {SMEM_MAX}")
+    nl = _window_rows(s, h, hout, rs)
     out = torch.empty((f, 3, hout, wq), dtype=torch.uint8, device=dev)
     vd = det = None
     ptr = lambda t: 0 if t is None else t.data_ptr()
@@ -259,7 +275,7 @@ def _blend_cuda(imgs_p, pred_low, si, sw, h, w, hout, wq, ds, lowres):
     _lib.check(lib.vs_blend_planar(
         imgs_p.data_ptr(), pred_low.data_ptr(), ls.data_ptr(), lw.data_ptr(), lt,
         ws.data_ptr(), ww.data_ptr(), wt, out.data_ptr(), ptr(vd), ptr(dws), ptr(dww), dwt,
-        f, hp, wb, hout, h, wq, s, ds, int(lowres), RS, nl, float(si), float(sw), stream),
+        f, hp, wb, hout, h, wq, s, ds, int(lowres), rs, nl, float(si), float(sw), stream),
         "vs_blend_planar")
     if ds:
         dhs, dhw, dht = tabs["dh"]
@@ -311,7 +327,8 @@ def _prepare(imgs_p, pred_low, h, w):
 
 def fused_jnd_blend_planar(imgs_p: torch.Tensor, pred_low: torch.Tensor,
                            scaling_w: float, scaling_i: float, h: int, w: int,
-                           detect_size: int | None = None, lowres: bool = False):
+                           detect_size: int | None = None, lowres: bool = False,
+                           rs: int = RS):
     """imgs_p: padded planar (F, 3, Hp, Wb) u8; pred_low: (F, s, s) watermark
     prediction at processing resolution. Returns (F, 3, TH*n_tiles, Wq) u8:
 
@@ -321,13 +338,15 @@ def fused_jnd_blend_planar(imgs_p: torch.Tensor, pred_low: torch.Tensor,
     heatmap is then already in pred_low). detect_size=ds also returns the
     watermarked frames downscaled to (F, 3, ds, ds) f32 in [0, 1].
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel."""
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
+    a block for each `rs` output rows (the same output for any rs the
+    kernel's shared memory takes: ``evals/planar_probe.py`` sweeps it)."""
     hout, wq = _prepare(imgs_p, pred_low, h, w)
     args = (imgs_p, pred_low, scaling_i, scaling_w, h, w, hout, wq, detect_size or 0, lowres)
     if imgs_p.device.type == "cpu":
         out, det = _blend_plain(*args)
     elif imgs_p.device.type == "cuda":
-        out, det = _blend_cuda(*args)
+        out, det = _blend_cuda(*args, rs)
         fused_jnd_blend_planar.launches += 1
     else:
         raise ValueError(f"fused_jnd_blend_planar: unsupported device {imgs_p.device}")
@@ -338,8 +357,9 @@ fused_jnd_blend_planar.launches = 0
 
 
 def fused_jnd_blend_planar_plain(imgs_p, pred_low, scaling_w, scaling_i, h, w,
-                                 detect_size=None, lowres=False):
-    """The plain version on any device, to hold the kernel against."""
+                                 detect_size=None, lowres=False, rs=RS):
+    """The plain version on any device, to hold the kernel against (it has
+    no blocks: `rs` is the kernel's alone)."""
     hout, wq = _prepare(imgs_p, pred_low, h, w)
     out, det = _blend_plain(imgs_p, pred_low, scaling_i, scaling_w, h, w, hout, wq,
                             detect_size or 0, lowres)

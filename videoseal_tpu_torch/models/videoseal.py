@@ -23,6 +23,7 @@ import torch
 from ..kernels.fused_blend import fused_jnd_blend, fused_jnd_blend_up, supports_fused_blend
 from ..kernels.fused_planar import fused_jnd_blend_planar, resize_planar
 from ..kernels.unet_fused import supports_unet_fused, unet_apply_fused
+from ..kernels.unet_s2d import unet_apply_s2d
 from ..modules.common import mixes_frames
 from ..modules.convnext import differentiable
 from ..modules.discriminator import SNConv2d
@@ -56,6 +57,15 @@ class PipelineConfig:
     compute_dtype: str = "float32"
     resize_precision: str = "highest"
     fused_embedder: bool = False   # BN-folded UNet forward (kernels/unet_fused.py)
+    s2d_embedder: bool = False     # ... in space-to-depth layouts (kernels/unet_s2d.py)
+
+
+def s2d_embedder_rule(fused_embedder: bool, img_size: int, device_type: str) -> bool:
+    """The JAX package's rule for its space-to-depth embedder: the folded
+    route is on, the blend is fused (every backend but the CPU: here, the
+    model's parameters are not on the CPU) and the processing size is a
+    multiple of 8."""
+    return fused_embedder and device_type != "cpu" and img_size % 8 == 0
 
 
 def _expand_video_mode(preds: torch.Tensor, total_frames: int, step_size: int,
@@ -103,9 +113,11 @@ def _chunked_apply(fn, xs: tuple, chunk_size: int, pad_last: bool = False) -> to
 
 def _make_run_embedder(embedder, cfg: PipelineConfig, pre_scale: float | None = None):
     """Embedder forward over a (frames, msgs) chunk: optional input rescale
-    (1/255 for u8 frames), YUV-Y select, compute-dtype cast, then the UNet's
-    folded forward (``kernels/unet_fused.py``) where cfg.fused_embedder is
-    set, the module is in eval mode and takes no gradient, else the module."""
+    (1/255 for u8 frames), YUV-Y select, compute-dtype cast, then, where
+    cfg.fused_embedder is set, the module is in eval mode and takes no
+    gradient, the UNet's space-to-depth forward (``kernels/unet_s2d.py``)
+    where cfg.s2d_embedder is set too, else its folded forward
+    (``kernels/unet_fused.py``); otherwise the module."""
     cdtype = _DTYPES[cfg.compute_dtype]
     fused = cfg.fused_embedder and isinstance(embedder, UnetEmbedder)
 
@@ -115,6 +127,8 @@ def _make_run_embedder(embedder, cfg: PipelineConfig, pre_scale: float | None = 
             inp = inp * pre_scale
         x = (rgb_to_y(inp) if cfg.yuv else inp).to(cdtype)
         if fused and not embedder.training and not differentiable(embedder, x):
+            if cfg.s2d_embedder:
+                return unet_apply_s2d(embedder.unet, x, m)
             return unet_apply_fused(embedder.unet, x, m)
         return embedder(x, m)
 
@@ -432,14 +446,16 @@ class VideoSeal:
     def with_dtype(self, dtype: str = "bfloat16", resize_precision: str = "default"):
         """A copy for serving-speed inference: floating params and the
         forwards in `dtype`, bf16 resizes, and a UNet embedder that
-        `supports_unet_fused` served through its folded forward on every
-        device, as the JAX package's with_dtype serves it. The full-res
-        blend stays f32."""
+        `supports_unet_fused` served through its folded forward, as the JAX
+        package's with_dtype serves it; on the card through the
+        space-to-depth forward where `s2d_embedder_rule` says so. The
+        full-res blend stays f32."""
         fused_emb = (isinstance(self.embedder, UnetEmbedder)
                      and supports_unet_fused(self.embedder.unet_cfg))
+        s2d_emb = s2d_embedder_rule(fused_emb, self.cfg.img_size, self.device.type)
         cfg = dataclasses.replace(self.cfg, compute_dtype=dtype,
                                   resize_precision=resize_precision,
-                                  fused_embedder=fused_emb)
+                                  fused_embedder=fused_emb, s2d_embedder=s2d_emb)
         emb = dataclasses.replace(self.embedder_spec,
                                   module=copy.deepcopy(self.embedder).to(_DTYPES[dtype]))
         ext = dataclasses.replace(self.extractor_spec,
