@@ -5,7 +5,9 @@ the last line's bit_acc and psnr; then, for runs of one start, the first
 logged step at which two logs differ. "uniform init" is init_weights
 before it drew flax's initializers (U(+-1/sqrt(fan_in)) weights and
 biases), "lecun init" lecun_init.py's, "flax init" init_weights since: the
-same draws as lecun_init.py's.
+same draws as lecun_init.py's. "float32" and "bf16 operands" are
+precision/run.sh's two arms (the trainer as it runs, and under
+precision/bf16_ops.py); a 7,500-step run's last logged step is 7,490.
 
     python outputs/convergence_torch/table.py
 """
@@ -39,6 +41,14 @@ RUNS = [
     ("card, flax init, seed 2, deterministic", "outputs/convergence_torch/flax_init/seed2.log.txt"),
     ("card, flax init, seed 444 (the recipe)",
      "outputs/convergence_torch/flax_init/stageA/log.txt"),
+] + [
+    (f"card, flax init, seed {s}, deterministic, {arm}",
+     f"outputs/convergence_torch/precision/{tag}_seed{s}.log.txt")
+    for tag, arm in (("f32", "float32"), ("bf16", "bf16 operands"))
+    for s in (444, 0, 1, 2)
+] + [
+    ("card, flax init, seed 444, deterministic, float32, 15,000",
+     "outputs/convergence_torch/precision/f32_seed444_15000.log.txt"),
 ]
 PAIRS = [           # two runs of one start: (name, run, run) by RUNS' names
     ("repeat a, b", "card, uniform init, seed 444, repeat a", "card, uniform init, seed 444, repeat b"),
@@ -47,9 +57,18 @@ PAIRS = [           # two runs of one start: (name, run, run) by RUNS' names
     ("lecun seed 444, both", "card, lecun init, seed 444", "card, lecun init, seed 444 (2nd)"),
     ("seed 444: lecun, flax init deterministic", "card, lecun init, seed 444 (2nd)",
      "card, flax init, seed 444, deterministic"),
+] + [
+    pair for s in (444, 0, 1, 2) for pair in (
+        (f"seed {s}: flax_init 3,000, float32 7,500", f"card, flax init, seed {s}, deterministic",
+         f"card, flax init, seed {s}, deterministic, float32"),
+        (f"seed {s}: float32, bf16 operands", f"card, flax init, seed {s}, deterministic, float32",
+         f"card, flax init, seed {s}, deterministic, bf16 operands"))
+] + [
+    ("seed 444: float32 7,500, 15,000", "card, flax init, seed 444, deterministic, float32",
+     "card, flax init, seed 444, deterministic, float32, 15,000"),
 ]
 MARKS = (0.6, 0.75, 0.9, 0.98, 1.0)
-AT = (1000, 2000, 2490)
+AT = (1000, 2000, 2490, 5000, 7490)    # 7490: the last logged step of 7,500
 
 
 def load(path):
