@@ -246,6 +246,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      BENCH_FPS_RTOL of phase 5's scored fps; then STAGE_A_STEPS steps of
      docs/training.md's stage A flags through train.main (32 bits, 128 px,
      batch 32, the identity pool by its YAML file's name: no kernel), every
+     logged value finite, ms a step; then STAGE_B_STEPS steps of stage B's
+     flags (STAGE_B_FLAGS: the default pool at two attacks a step, the
+     discriminator, the yuv perceptual loss; no kernel) resumed from that
+     checkpoint, the lr of every update equal to the stage-B schedule at the
+     restored count plus the updates made (to float32 rounding), every
      logged value finite, ms a step. Phase 22 alone: `python3 -c "import
      torch, chip_smoke as cs; smi, _ = cs.phase_device(); cs.phase_build();
      cs.phase_bench(torch.device('cuda', 0), smi, None)"`.
@@ -447,6 +452,17 @@ STAGE_A_FLAGS = ("--card", "videoseal_1.0", "--nbits", "32", "--img_size", "128"
                  "--scaling_w", "1.0", "--optimizer", "AdamW,lr=5e-4",
                  "--scheduler", "CosineLRScheduler,lr_min=1e-6,t_initial=15,warmup_t=1",
                  "--augmentation_config", "videoseal_tpu/configs/augs_identity.yaml")
+# stage B's flags (docs/training.md:87-95: the default pool, two attacks a
+# step, the discriminator and the yuv perceptual loss; --resume added), the
+# steps run here from phase 22's stage A
+STAGE_B_STEPS = 20
+STAGE_B_FLAGS = ("--card", "videoseal_1.0", "--nbits", "32", "--img_size", "128",
+                 "--synthetic", "1", "--batch_size", "32", "--num_augs", "2",
+                 "--lambda_d", "0.1", "--lambda_i", "0.1", "--perceptual_loss", "yuv",
+                 "--disc_start", "11000", "--scaling_w", "1.0",
+                 "--scaling_w_schedule", "Cosine,scaling_min=0.4,start_epoch=25,epochs=50",
+                 "--optimizer", "AdamW,lr=2e-4",
+                 "--scheduler", "CosineLRScheduler,lr_min=1e-6,t_initial=100,warmup_t=2")
 # K5's geometry edges, (F, H, W): a height that no swept strip divides, a
 # frame of 3 rows, a width under 16, a ragged last band on the 16-byte
 # path (1040: bands of 528 and 512 columns); and its sweep at F=128, 1080p:
@@ -4285,7 +4301,7 @@ def phase_rest(dev, smi: str) -> dict:
 def phase_bench(dev, smi: str, slice_fps: float | None) -> dict:
     """Phase 22: the port's scorer at its defaults and on NHWC frames in both
     JND modes, its scored fps against phase 5's; then stage A's first steps
-    through train.main."""
+    through train.main, and stage B resumed from them."""
     import tempfile
 
     from videoseal_tpu_torch import bench, train
@@ -4322,7 +4338,7 @@ def phase_bench(dev, smi: str, slice_fps: float | None) -> dict:
 
 
     # stage A's first steps: the flags as the recipe gives them, the identity
-    # pool taken by its YAML file's name
+    # pool taken by its YAML file's name; then stage B resumed from them
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stagea_") as tmp:
         reset_counts()
         t0 = time.perf_counter()
@@ -4331,20 +4347,75 @@ def phase_bench(dev, smi: str, slice_fps: float | None) -> dict:
         wall = time.perf_counter() - t0
         check_counts("stage A", {})
         logged = [json.loads(ln) for ln in open(os.path.join(tmp, "log.txt"))]
-    if state.step != STAGE_A_STEPS or not logged or not all(
+        if state.step != STAGE_A_STEPS or not logged or not all(
+                math.isfinite(v) for r in logged for v in r.values()):
+            raise AssertionError(f"stage A: step {state.step}, log {logged}")
+        del state
+        torch.cuda.empty_cache()
+        med = float(np.median(step_ms[2:]))
+        log(f"[bench] {smi} | stage A (videoseal_1.0, 32 bits, batch 32 at 128x128, identity "
+            f"pool, decode loss only; TF32 cudnn={torch.backends.cudnn.allow_tf32} "
+            f"matmul={torch.backends.cuda.matmul.allow_tf32}): {med:.2f} ms a step (CUDA "
+            f"events, median of steps 3-{STAGE_A_STEPS}; the first two "
+            f"{[round(t, 1) for t in step_ms[:2]]}), main() wall {wall:.1f} s; last log "
+            f"{json.dumps(logged[-1])}")
+        rec["stage_a"] = {"median_ms": med, "step_ms": step_ms, "wall_s": wall, "log": logged}
+        rec["stage_b"] = _stage_b(os.path.join(tmp, "checkpoint.npz"),
+                                  os.path.join(tmp, "stage_b"), smi)
+    return rec
+
+
+def _stage_b(ckpt: str, out: str, smi: str) -> dict:
+    """STAGE_B_STEPS steps of stage B's flags through train.main, resumed
+    from phase 22's stage A: the lr of every update (read by a step hook
+    on the generator's optimizer) equal to the port's stage-B schedule at
+    the restored count plus the updates made, every logged value finite."""
+    from videoseal_tpu_torch import train
+    from videoseal_tpu_torch.parallel import trainer
+    from videoseal_tpu_torch.utils.optim import build_lr_schedule, parse_params
+
+    args = train.get_parser().parse_args(list(STAGE_B_FLAGS))
+    sched = build_lr_schedule(args.scheduler, args.iter_per_epoch,
+                              parse_params(args.optimizer)["lr"])
+    lrs = []
+    make_state = trainer.create_train_state
+
+    def recording(*a, **kw):
+        state = make_state(*a, **kw)
+        state.opt_g.register_step_pre_hook(lambda opt, *_: lrs.append(opt.param_groups[0]["lr"]))
+        return state
+
+    trainer.create_train_state = recording
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _, step_ms = train.main(list(STAGE_B_FLAGS) + [
+            "--steps", str(STAGE_B_STEPS), "--resume", ckpt, "--output_dir", out])
+        wall = time.perf_counter() - t0
+        check_counts("stage B", {})
+    finally:
+        trainer.create_train_state = make_state
+    logged = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
+    if state.step != STAGE_A_STEPS + STAGE_B_STEPS or not logged or not all(
             math.isfinite(v) for r in logged for v in r.values()):
-        raise AssertionError(f"stage A: step {state.step}, log {logged}")
+        raise AssertionError(f"stage B: step {state.step}, log {logged}")
+    want = [sched(STAGE_A_STEPS + k) for k in range(STAGE_B_STEPS)]
+    lr_err = max((abs(a - b) / b for a, b in zip(lrs, want)), default=math.inf)
+    log(f"[bench] stage B resumed at step {STAGE_A_STEPS}: lr of updates 1-{len(lrs)} "
+        f"{lrs[0]:.6e} ... {lrs[-1]:.6e}, the stage-B schedule's {want[0]:.6e} ... "
+        f"{want[-1]:.6e}, largest relative gap {lr_err:.2e} (limit 2^-23)")
+    if len(lrs) != STAGE_B_STEPS or not lr_err <= 2.0 ** -23:
+        raise AssertionError(f"stage B: lr of the resumed updates {lrs}, schedule {want}")
     del state
     torch.cuda.empty_cache()
     med = float(np.median(step_ms[2:]))
-    log(f"[bench] {smi} | stage A (videoseal_1.0, 32 bits, batch 32 at 128x128, identity "
-        f"pool, decode loss only; TF32 cudnn={torch.backends.cudnn.allow_tf32} "
-        f"matmul={torch.backends.cuda.matmul.allow_tf32}): {med:.2f} ms a step (CUDA "
-        f"events, median of steps 3-{STAGE_A_STEPS}; the first two "
-        f"{[round(t, 1) for t in step_ms[:2]]}), main() wall {wall:.1f} s; last log "
-        f"{json.dumps(logged[-1])}")
-    rec["stage_a"] = {"median_ms": med, "step_ms": step_ms, "wall_s": wall, "log": logged}
-    return rec
+    log(f"[bench] {smi} | stage B (videoseal_1.0, 32 bits, batch 32 at 128x128, the default "
+        f"pool at 2 attacks a step, the discriminator, yuv perceptual): {med:.2f} ms a step "
+        f"(CUDA events, median of steps 3-{STAGE_B_STEPS}; the first two "
+        f"{[round(t, 1) for t in step_ms[:2]]}), main() wall {wall:.1f} s")
+    log(f"[bench] last log {json.dumps(logged[-1])}")
+    return {"median_ms": med, "step_ms": step_ms, "wall_s": wall, "log": logged, "lrs": lrs,
+            "lr_rel_err": lr_err}
 
 
 def _is_elementwise(name: str) -> bool:

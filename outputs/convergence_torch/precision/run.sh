@@ -20,6 +20,8 @@
 #   bash outputs/convergence_torch/precision/run.sh ARM [STEPS [SEEDS]]
 # writes chiprun_out/precision/{smi.txt,run.log,<arm>_seed<S>[_<STEPS>].{out,log.txt},
 # <run>.detect_input.jsonl}. LIMIT (default 3300) caps each run's seconds.
+# RUNS_DIR, if set, is the directory the runs' output_dirs go in, kept
+# (checkpoints included) for what runs next (../stageB/run.sh).
 set -x
 ARM=${1:?ARM: f32, bf16 or both}
 STEPS=${2:-7500}
@@ -27,7 +29,7 @@ SEEDS=${3:-444 0 1 2}
 LIMIT=${LIMIT:-3300}
 O=chiprun_out/precision
 mkdir -p $O
-T=$(mktemp -d)    # each run's output_dir
+T=${RUNS_DIR:-$(mktemp -d)}    # each run's output_dir
 FL="--card videoseal_1.0 --nbits 32 --img_size 128 --synthetic 1 --batch_size 32 --num_augs 1 --lambda_d 0 --lambda_i 0 --perceptual_loss none --scaling_w 1.0 --optimizer AdamW,lr=5e-4 --scheduler CosineLRScheduler,lr_min=1e-6,t_initial=15,warmup_t=1 --augmentation_config videoseal_tpu/configs/augs_identity.yaml"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader > $O/smi.txt
 python -c "import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda, \
@@ -65,4 +67,4 @@ for r in $RUNS; do
             --checkpoint $T/$r/checkpoint.npz > $O/$r.detect_input.jsonl
     fi
 done
-rm -rf "$T"
+[ -n "$RUNS_DIR" ] || rm -rf "$T"

@@ -10,10 +10,24 @@ precision/run.sh's two arms (the trainer as it runs, and under
 precision/bf16_ops.py); a 7,500-step run's last logged step is 7,490.
 
     python outputs/convergence_torch/table.py
+
+With `stageB`, stage B's runs (docs/training.md:84-100, resumed from a
+stage A) beside the TPU's: the median logged bit_acc and psnr over steps
+10,000-11,990 (the convergence rule's window), the lowest bit_acc before
+step 4,000 and the first logged step after it back at 0.95, and the last
+line; then each robustness sweep's (metrics.csv, at --scaling_w 0.4 as
+the TPU's; metrics_sw1.csv at 1.0 where run) mean bit_acc by attack, the
+attack's parameters dropped, beside r2's, and the identity rows' psnr.
+
+    python outputs/convergence_torch/table.py stageB
 """
 
+import csv
 import json
 import os
+import re
+import statistics
+import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -71,6 +85,20 @@ MARKS = (0.6, 0.75, 0.9, 0.98, 1.0)
 AT = (1000, 2000, 2490, 5000, 7490)    # 7490: the last logged step of 7,500
 
 
+STAGE_B = [
+    ("TPU r2 (JAX; stage A to ~8,870, the discriminator on at 2,130)",
+     "outputs/convergence_r2/stageB/log.txt", "outputs/convergence_r2/stageB/metrics.csv"),
+    ("TPU r4 (JAX; stage A to 15,000, the discriminator on from 0)",
+     "outputs/convergence_r4/stageB/log.txt", None),
+] + [
+    (f"card, stage-B seed {s} (float32 seed-444 stage A to 15,000, the discriminator on from 0)",
+     f"outputs/convergence_torch/stageB/seed{s}.log.txt",
+     f"outputs/convergence_torch/stageB/seed{s}.metrics.csv")
+    for s in (444, 0)
+]
+WINDOW, DIP_BEFORE, BACK_AT = (10000, 11990), 4000, 0.95
+
+
 def load(path):
     return [json.loads(ln) for ln in open(os.path.join(ROOT, path))]
 
@@ -97,5 +125,48 @@ def main():
         print(f"| {name} | {first} | {both[-1][0]['step']} |")
 
 
+def stage_b():
+    print(f"| run | median bit_acc, psnr over {WINDOW[0]:,}-{WINDOW[1]:,} | lowest bit_acc "
+          f"before {DIP_BEFORE:,} | back to {BACK_AT} | last step: bit_acc, psnr |")
+    print("|---|---|---|---|---|")
+    sweeps = []
+    for name, path, sweep in STAGE_B:
+        if not os.path.exists(os.path.join(ROOT, path)):
+            print(f"| {name} | not run | | | |")
+            continue
+        rows = load(path)
+        win = [r for r in rows if WINDOW[0] <= r["step"] <= WINDOW[1]]
+        med = (lambda k: statistics.median(r[k] for r in win))
+        low = min((r for r in rows if r["step"] < DIP_BEFORE), key=lambda r: r["bit_acc"])
+        back = next((str(r["step"]) for r in rows if r["step"] > low["step"]
+                     and r["bit_acc"] >= BACK_AT), "-")
+        cell = f"{med('bit_acc'):.4f}, {med('psnr'):.2f} dB ({len(win)} lines)" if win else "-"
+        last = rows[-1]
+        print(f"| {name} | {cell} | {low['bit_acc']:.4f} at {low['step']} | {back} | "
+              f"{last['step']}: {last['bit_acc']:.4f}, {last['psnr']:.2f} dB |")
+        short = name.split(" (")[0]
+        for label, csv_path in ((short, sweep), (f"{short} at scaling_w 1.0",
+                                                 sweep and sweep.replace(".csv", "_sw1.csv"))):
+            if csv_path and os.path.exists(os.path.join(ROOT, csv_path)):
+                sweeps.append((label, csv_path))
+    if not sweeps:
+        return
+    means = []
+    for _, sweep in sweeps:
+        acc: dict = {}
+        for r in csv.DictReader(open(os.path.join(ROOT, sweep))):
+            acc.setdefault(re.sub(r"\([^)]*\)", "", r["aug"]), []).append(float(r["bit_acc"]))
+        means.append({k: (sum(v) / len(v), len(v)) for k, v in acc.items()})
+    print("\n| attack (rows) | " + " | ".join(n for n, _ in sweeps) + " |")
+    print("|---|" + "---|" * len(sweeps))
+    for aug in dict.fromkeys(k for m in means for k in m):
+        cells = [f"{m[aug][0]:.4f} ({m[aug][1]})" if aug in m else "-" for m in means]
+        print(f"| {aug} | " + " | ".join(cells) + " |")
+    psnr = [[float(r["psnr"]) for r in csv.DictReader(open(os.path.join(ROOT, p)))
+             if r["aug"] == "Identity()"] for _, p in sweeps]
+    print("| identity psnr, dB | " + " | ".join(f"{min(v):.2f}-{max(v):.2f}" for v in psnr)
+          + " |")
+
+
 if __name__ == "__main__":
-    main()
+    stage_b() if sys.argv[1:] == ["stageB"] else main()

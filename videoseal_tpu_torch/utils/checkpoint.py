@@ -12,7 +12,11 @@ straight into the port's modules, which keep the reference's names.
 `save_train_state` / `load_train_state` write and read the port's training
 state: the modules in the same layout, the optimizers' states beside them.
 `load_train_state` also resumes a train state the JAX package wrote (its
-optax trees stored leaf by leaf beside their treedefs' text).
+optax trees stored leaf by leaf beside their treedefs' text). A resume
+restores what optax restores, from either package's files: each
+parameter's optimizer state and the schedule's count; the lr, the weight
+decay and the schedule are the running optimizers', set by the new run's
+flags (the files still carry the param groups and the scheduler's state).
 `save_train_state_sharded` / `load_train_state_sharded` are the collective
 checkpoints of ``--ckpt_format orbax``: ``torch.distributed.checkpoint``
 files (not orbax's) in one numbered subdirectory per step, the last
@@ -25,6 +29,7 @@ import json
 import os
 import re
 import shutil
+import warnings
 
 import numpy as np
 import torch
@@ -148,15 +153,39 @@ def _flat_optimizer(prefix: str, opt: torch.optim.Optimizer) -> dict:
     return flat
 
 
+def _resume_optimizer(opt: torch.optim.Optimizer, state: dict, saved_groups: list) -> None:
+    """Restore the per-parameter `state` (tensors by parameter index) into
+    `opt`, as optax restores its moments and count: the running param
+    groups, whose lr, weight decay and betas the new run's flags set, are
+    kept (the saved groups only checked to hold as many parameters)."""
+    sd = opt.state_dict()
+    have, want = ([len(g["params"]) for g in groups] for groups in (saved_groups,
+                                                                    sd["param_groups"]))
+    if have != want:
+        raise ValueError(f"the checkpoint's optimizer holds {have} parameters a group, "
+                         f"the running one {want}")
+    sd["state"] = state
+    opt.load_state_dict(sd)
+
+
+def _resume_schedule(sched, count: int) -> None:
+    """Put `sched` (a LambdaLR on the new run's schedule) at optax's
+    `count`: the next update runs at the new schedule's lr at that count."""
+    sched.last_epoch = count - 1
+    with warnings.catch_warnings():
+        # a position set before the first update, not a step skipped
+        warnings.filterwarnings("ignore", message=re.escape("Detected call of `lr_scheduler"))
+        sched.step()
+
+
 def _load_optimizer(prefix: str, data, opt: torch.optim.Optimizer) -> None:
-    groups = json.loads(bytes(data[f"{prefix}{SEP}param_groups"]).decode())
     state: dict = {}
     head = f"{prefix}{SEP}state{SEP}"
     for key in data.files:
         if key.startswith(head):
             idx, name = key[len(head):].split(SEP)
             state.setdefault(int(idx), {})[name] = torch.from_numpy(np.array(data[key]))
-    opt.load_state_dict({"state": state, "param_groups": groups})
+    _resume_optimizer(opt, state, json.loads(bytes(data[f"{prefix}{SEP}param_groups"]).decode()))
 
 
 def save_train_state(path: str, state) -> None:
@@ -190,7 +219,10 @@ def save_train_state(path: str, state) -> None:
 def load_train_state(path: str, state) -> None:
     """Restore a `save_train_state` file, or a train state the JAX package
     wrote, into `state` (a freshly created TrainState of the same
-    configuration and optimizers) in place."""
+    configuration) in place: the modules, each parameter's optimizer state,
+    the schedule's count, the step and scaling_w. `state`'s optimizers and
+    schedule keep their hyperparameters, so the next update runs at its
+    schedule's lr at the restored count, as the JAX package resumes."""
     from .convert import disc_from_jax, from_jax_variables
 
     with np.load(path) as data:
@@ -206,7 +238,8 @@ def load_train_state(path: str, state) -> None:
         _load_optimizer("opt_g", data, state.opt_g)
         _load_optimizer("opt_d", data, state.opt_d)
         if state.sched_g is not None:
-            state.sched_g.load_state_dict(json.loads(bytes(data["sched_g"]).decode()))
+            _resume_schedule(state.sched_g,
+                             json.loads(bytes(data["sched_g"]).decode())["last_epoch"])
         state.step = int(data["step"])
         state.scaling_w = float(data["scaling_w"])
 
@@ -365,8 +398,7 @@ def _jax_opt_into(opt: torch.optim.Optimizer, chain: dict, jax_params: dict, to_
     if "ScaleByScheduleState" in kinds:
         if sched is None:
             raise ValueError("the JAX state has an lr schedule and the port's state none")
-        sched.last_epoch = int(slots["ScaleByScheduleState.count"]) - 1
-        sched.step()
+        _resume_schedule(sched, int(slots["ScaleByScheduleState.count"]))
 
 
 def _jax_adafactor(slots, jax_params, to_torch, names, min_dim) -> dict:
@@ -502,7 +534,8 @@ def save_train_state_sharded(ckpt_dir: str, state, step: int | None = None,
 def load_train_state_sharded(ckpt_dir: str, state, step: int | None = None) -> int:
     """Restore ``ckpt_dir/<step>/`` (the latest step by default) into
     `state` (a freshly created TrainState of the same configuration) in
-    place, on every rank. Returns the step."""
+    place, on every rank, as `load_train_state` restores a file. Returns
+    the step."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 
@@ -528,10 +561,10 @@ def load_train_state_sharded(ckpt_dir: str, state, step: int | None = None) -> i
             if k.startswith(head):
                 idx, leaf = k[len(head):].split(".", 1)
                 opt_state.setdefault(int(idx), {})[leaf] = v
-        getattr(state, name).load_state_dict(
-            {"state": opt_state, "param_groups": json.loads(target[f"{name}.param_groups"])})
+        _resume_optimizer(getattr(state, name), opt_state,
+                          json.loads(target[f"{name}.param_groups"]))
     if state.sched_g is not None:
-        state.sched_g.load_state_dict(json.loads(target["sched_g"]))
+        _resume_schedule(state.sched_g, json.loads(target["sched_g"])["last_epoch"])
     state.step = int(target["step"])
     state.scaling_w = float(target["scaling_w"])
     return int(step)
